@@ -1,0 +1,1 @@
+"""objectives of the PyTorch port (see the package docstring)."""

@@ -1,0 +1,164 @@
+"""The retina's multi-level glimpse sampler: CUDA kernel and plain version.
+
+Counterpart of ``multimodal_active_ai_tpu/ops/pallas_retina.py``:
+:func:`glimpse_sample` takes the place of the TPU kernel ``glimpse_sample``
+and :func:`glimpse_sample_plain` follows its XLA version
+``glimpse_sample_xla``. For each plan row ``b`` (source image
+``b % B_src``, so a view-major ``V·B_src`` plan runs against one pyramid)
+and each level ``l``, it samples the channel-interleaved bf16 mip
+``(B_src, M_l, 3·M_l)`` by windowed bilinear ("hat") interpolation:
+window-relative ``y`` is clamped to ``[0, win-1]``, ``x`` to the window, the
+result is multiplied by the per-point ``scale`` (grid-mask keep ×
+in-bounds), and it comes back channel-major ``(B, 3L, P)`` float32.
+
+On a CUDA tensor :func:`glimpse_sample` launches the kernel of
+``csrc/glimpse_sample.cu`` (one thread per output point, at most 2×2 bf16
+taps read straight from the mip, f32 accumulation, all levels in one
+launch) or raises; on a CPU tensor it runs the plain version. There is no
+fallback from the kernel to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from multimodal_active_ai_tpu_torch.ops import cuda_build
+
+MAX_LEVELS = 8  # GS_MAX_LEVELS in csrc/glimpse_sample.cu
+
+
+def glimpse_sample_plain(mips: Sequence[torch.Tensor], rel_y: torch.Tensor,
+                         rel_x: torch.Tensor, start: torch.Tensor,
+                         scale: torch.Tensor, wins: Sequence[int],
+                         msizes: Sequence[int] | None = None) -> torch.Tensor:
+    """The sampler in plain PyTorch, step for step as ``glimpse_sample_xla``:
+    per level, slice each row's ``win × win`` window (start clamped to
+    ``[0, M-win]`` as ``dynamic_slice`` does), contract it with bf16-rounded
+    ``y`` hat weights in f32, then with f32 ``x`` hat weights.
+
+    Args:
+      mips: per-level ``(B_src, M_l, 3·M_l)`` bf16 mips.
+      rel_y, rel_x: ``(B, L, P)`` float32 window-relative coordinates.
+      start: ``(B, L, 2)`` int window origins ``(y, x)``.
+      scale: ``(B, L, P)`` float32 per-point multipliers.
+      wins: per-level window sides.
+      msizes: per-level mip sides (checked against the mips when given).
+
+    Returns ``(B, 3L, P)`` float32.
+    """
+    b, levels, p = rel_y.shape
+    src_b = mips[0].shape[0]
+    _check_geometry(mips, wins, msizes, b, levels)
+    dev = rel_y.device
+    rows = torch.arange(b, device=dev) % src_b
+    outs = []
+    for li, (mip, win) in enumerate(zip(mips, wins)):
+        m = mip.shape[1]
+        img = mip.view(src_b, m, m, 3)
+        s = start[:, li].long().clamp(0, m - win)                 # (B, 2)
+        ar = torch.arange(win, device=dev)
+        iy = s[:, 0:1] + ar                                         # (B, win)
+        ix = s[:, 1:2] + ar
+        patch = img[rows[:, None, None], iy[:, :, None], ix[:, None, :]]
+        idx = ar.to(torch.float32)
+        ry = rel_y[:, li].clamp(0.0, win - 1.0)[..., None]         # (B, P, 1)
+        rx = rel_x[:, li].clamp(0.0, win - 1.0)[..., None]
+        wy = torch.clamp_min(1.0 - (ry - idx).abs(), 0.0)          # (B, P, win)
+        wx = torch.clamp_min(1.0 - (rx - idx).abs(), 0.0)
+        wy = wy.to(torch.bfloat16).to(torch.float32)
+        tmp = torch.bmm(wy, patch.to(torch.float32).reshape(b, win, win * 3))
+        v = (tmp.view(b, p, win, 3) * wx[..., None]).sum(2)         # (B, P, 3)
+        outs.append(v * scale[:, li, :, None])
+    return torch.cat(outs, -1).transpose(1, 2).contiguous()
+
+
+def glimpse_sample(mips: Sequence[torch.Tensor], rel_y: torch.Tensor,
+                   rel_x: torch.Tensor, start: torch.Tensor,
+                   scale: torch.Tensor, wins: Sequence[int],
+                   msizes: Sequence[int] | None = None) -> torch.Tensor:
+    """Sample all pyramid levels in one call; arguments and result as in
+    :func:`glimpse_sample_plain`.
+
+    CUDA tensors launch the hand-written kernel on the current stream and
+    add one to ``glimpse_sample.launches``; CPU tensors take the plain
+    version. ``start`` must be int32 and every tensor contiguous on CUDA.
+    """
+    if rel_y.device.type == "cpu":
+        return glimpse_sample_plain(mips, rel_y, rel_x, start, scale, wins,
+                                    msizes)
+    if rel_y.device.type != "cuda":
+        raise ValueError(f"glimpse_sample: unsupported device {rel_y.device}")
+    b, levels, p = rel_y.shape
+    _check_geometry(mips, wins, msizes, b, levels)
+    if levels > MAX_LEVELS:
+        raise ValueError(f"glimpse_sample: {levels} levels > {MAX_LEVELS}")
+    dev = rel_y.device
+    for name, t, dtype, shape in (
+            ("rel_y", rel_y, torch.float32, (b, levels, p)),
+            ("rel_x", rel_x, torch.float32, (b, levels, p)),
+            ("scale", scale, torch.float32, (b, levels, p)),
+            ("start", start, torch.int32, (b, levels, 2))):
+        _check_tensor(name, t, dtype, shape, dev)
+    for li, mip in enumerate(mips):
+        _check_tensor(f"mips[{li}]", mip, torch.bfloat16, tuple(mip.shape), dev)
+
+    lib = _library()
+    out = torch.empty((b, 3 * levels, p), dtype=torch.float32, device=dev)
+    ptrs = (ctypes.c_void_p * levels)(*[m.data_ptr() for m in mips])
+    msz = (ctypes.c_int * levels)(*[m.shape[1] for m in mips])
+    wns = (ctypes.c_int * levels)(*[int(w) for w in wins])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.glimpse_sample_launch(
+            ptrs, msz, wns, levels, b, mips[0].shape[0], p,
+            rel_y.data_ptr(), rel_x.data_ptr(), start.data_ptr(),
+            scale.data_ptr(), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"glimpse_sample kernel launch failed: CUDA error {err}")
+    glimpse_sample.launches += 1
+    return out
+
+
+glimpse_sample.launches = 0
+
+
+def _library() -> ctypes.CDLL:
+    lib = cuda_build.load("glimpse_sample")
+    fn = lib.glimpse_sample_launch
+    if not fn.argtypes:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ci),
+                       ctypes.POINTER(ci), ci, ci, ci, ci,
+                       vp, vp, vp, vp, vp, vp]
+        fn.restype = ci
+    return lib
+
+
+def _check_geometry(mips, wins, msizes, b, levels):
+    if len(mips) != levels or len(wins) != levels:
+        raise ValueError(f"glimpse_sample: {len(mips)} mips and {len(wins)} "
+                         f"windows for {levels} levels")
+    src_b = mips[0].shape[0]
+    if b % src_b != 0:
+        raise ValueError(f"plan batch {b} not a multiple of mip batch {src_b}")
+    for li, (mip, win) in enumerate(zip(mips, wins)):
+        if mip.dim() != 3 or mip.shape[0] != src_b or mip.shape[2] != 3 * mip.shape[1]:
+            raise ValueError(f"mips[{li}] must be (B_src, M, 3M), got {tuple(mip.shape)}")
+        if msizes is not None and msizes[li] != mip.shape[1]:
+            raise ValueError(f"mips[{li}] side {mip.shape[1]} != msizes {msizes[li]}")
+        if not 1 <= win <= mip.shape[1]:
+            raise ValueError(f"window {win} outside [1, {mip.shape[1]}] at level {li}")
+
+
+def _check_tensor(name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"glimpse_sample: {name} on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"glimpse_sample: {name} is {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"glimpse_sample: {name} shape {tuple(t.shape)} != {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"glimpse_sample: {name} must be contiguous")

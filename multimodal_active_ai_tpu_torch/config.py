@@ -85,8 +85,10 @@ class ContrastiveConfig:
                                       "made on the device")
     stat_fusion: str = _flag("--stat-fusion", default="",
                              choices=["", "gram", "pallas"],
-                             help="fuse BN statistics into the 1x1 convs "
-                                  "(not ported: any value but '' raises)")
+                             help="take the Bottleneck 1x1 convs' BN "
+                                  "statistics from the convs: 'pallas' (the "
+                                  "conv1x1_stats kernel) or 'gram' (from the "
+                                  "conv input); '' for separate BN passes")
     device: str = _flag("--device", default="cuda",
                         help="'cuda' (default; raises if absent) or 'cpu'")
 

@@ -13,9 +13,16 @@ It runs on ``--device cuda`` (the default; it raises if CUDA is absent) or
 ``checkpoint.pth.tar`` / ``model_best.pth.tar`` in ``--checkpoint-dir``;
 ``--resume`` takes one of them.
 
+``--stat-fusion pallas|gram`` takes the Bottleneck 1×1 convs' BatchNorm
+statistics from the convs themselves (``models/conv_bn.py``; ``pallas`` is
+the ``conv1x1_stats`` kernel on CUDA). The port's checkpoints have one
+layout with or without it, so a checkpoint resumes under any
+``--stat-fusion`` value, optimizer state included: no conversion, unlike
+the JAX driver's cross-layout resume (``contrastive_learning.py:189-201``).
+
 Not ported yet, and raising with the ROADMAP item: ``--dataset
-imagenet/mscoco`` (the file readers and an image decoder), ``--stat-fusion``
-(kernels B2/B3), ``--multislice`` (multi-GPU), ``--canvas-cache``.
+imagenet/mscoco`` (the file readers and an image decoder), ``--multislice``
+(multi-GPU), ``--canvas-cache``.
 """
 
 from __future__ import annotations
@@ -41,10 +48,6 @@ def _check_ported(cfg: ContrastiveConfig) -> None:
         raise NotImplementedError(
             f"--dataset {cfg.dataset} is not ported yet (ROADMAP: HostLoader, "
             "the readers and an image decoder); use --dataset synthetic")
-    if cfg.stat_fusion:
-        raise NotImplementedError(
-            f"--stat-fusion {cfg.stat_fusion} is not ported yet (ROADMAP: "
-            "kernels B2/B3, stat_sums and conv1x1_stats)")
     if cfg.multislice:
         raise NotImplementedError(
             "--multislice is not ported yet (ROADMAP: multi-GPU, DDP/SyncBN)")
@@ -96,6 +99,7 @@ def main(argv=None):
 
     dtype = torch.bfloat16 if cfg.bf16 else torch.float32
     model = SimCLRModule(arch=cfg.arch, norm_kind="bn", dtype=dtype,
+                         stat_fusion=cfg.stat_fusion or None,
                          generator=torch.Generator().manual_seed(cfg.seed))
     model = model.to(device)
     if device.type == "cuda":

@@ -1,4 +1,5 @@
-// Multi-level windowed bilinear glimpse sampler for Hopper (sm_90a).
+// Multi-level windowed bilinear glimpse sampler for Hopper (sm_90a), and its
+// one-level form hat_sample (at the end of this file).
 //
 // Replaces the TPU kernel multimodal_active_ai_tpu/ops/pallas_retina.py:
 // glimpse_sample (body _glimpse_kernel_pipelined). Same function:
@@ -121,5 +122,87 @@ extern "C" int glimpse_sample_launch(const void* const* mips, const int* msizes,
   glimpse_sample_kernel<<<(unsigned int)blocks, threads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       lv, levels, src_batch, points, total, rel_y, rel_x, start, scale, out);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// hat_sample: one level, P-major output, no scale.
+//
+// Replaces the TPU kernel multimodal_active_ai_tpu/ops/pallas_retina.py:
+// hat_sample (body _hat_sample_kernel). Same function:
+//
+//   out[b, p, c] = sum_v hat(rxa - v) * sum_u bf16(hat(ry - u)) * mip[b, sy+u, 3v+c]
+//
+// with ry = clamp(rel[b,p,0], 0, win-1) window-relative, rxa =
+// clamp(rel[b,p,1] + sx, sx, sx+win-1) absolute, and the window start
+// clamped to [0, M - win] as XLA's dynamic_slice does. Unlike glimpse_sample,
+// the y weights are rounded to bf16 as the TPU kernel rounds them before its
+// matrix-unit contraction, so the weights agree with it bit for bit.
+//
+// Design and bound as glimpse_sample: one thread per (b, p), at most 2x2
+// bf16 taps (a tap with zero weight is never read), y contracted first per
+// column as the TPU kernel does, f32 accumulation. A thread stores its three
+// channels next to each other, so a warp writes 384 contiguous bytes. Bound
+// by memory bandwidth.
+
+__global__ void hat_sample_kernel(const __nv_bfloat16* __restrict__ mip, int m, int win,
+                                  int points, long long total,
+                                  const float* __restrict__ rel,
+                                  const int* __restrict__ start,
+                                  float* __restrict__ out) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const long long b = idx / points;
+  const int sy = min(max(start[2 * b], 0), m - win);
+  const int sx = min(max(start[2 * b + 1], 0), m - win);
+
+  const float ry = fminf(fmaxf(rel[2 * idx], 0.0f), (float)(win - 1));
+  const float sxf = (float)sx;
+  const float rxa = fminf(fmaxf(rel[2 * idx + 1] + sxf, sxf), sxf + (float)(win - 1));
+  const float y0f = floorf(ry);
+  const float x0f = floorf(rxa);
+  const float fy = ry - y0f;
+  const float fx = rxa - x0f;
+  const float wy0 = __bfloat162float(__float2bfloat16(1.0f - fy));
+  const float wy1 = __bfloat162float(__float2bfloat16(fy));
+
+  const long long row = 3LL * m;
+  const __nv_bfloat16* r0 =
+      mip + b * (long long)m * row + (long long)(sy + (int)y0f) * row + 3LL * (int)x0f;
+  // t = y-contracted column x0 (and x0 + 1 when its weight is nonzero)
+  float t0[3], t1[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int c = 0; c < 3; ++c) t0[c] = wy0 * __bfloat162float(r0[c]);
+  if (fx > 0.0f) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) t1[c] = wy0 * __bfloat162float(r0[3 + c]);
+  }
+  if (fy > 0.0f) {
+    const __nv_bfloat16* r1 = r0 + row;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) t0[c] += wy1 * __bfloat162float(r1[c]);
+    if (fx > 0.0f) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) t1[c] += wy1 * __bfloat162float(r1[3 + c]);
+    }
+  }
+  float* o = out + 3 * idx;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) o[c] = (1.0f - fx) * t0[c] + fx * t1[c];
+}
+
+// Plain C entry point, loaded with ctypes. mip (batch, m, 3m) bf16, rel
+// (batch, points, 2) f32 window-relative (y, x), start (batch, 2) int32, out
+// (batch, points, 3) f32. Launches on ``stream`` and returns
+// cudaGetLastError() (0 on success); does not synchronise.
+extern "C" int hat_sample_launch(const void* mip, int batch, int m, int win, int points,
+                                 const float* rel, const int* start, float* out,
+                                 void* stream) {
+  if (batch < 1 || points < 1 || win < 1 || win > m) return (int)cudaErrorInvalidValue;
+  const long long total = (long long)batch * points;
+  const int threads = 256;
+  const long long blocks = (total + threads - 1) / threads;
+  hat_sample_kernel<<<(unsigned int)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(mip), m, win, points, total, rel, start, out);
   return (int)cudaGetLastError();
 }

@@ -13,6 +13,12 @@ at the edges copy nothing. Submodule names follow the reference torch
 layout (``conv1``, ``bn1``, ``layer{s}.{i}.conv{k}``/``bn{k}``,
 ``downsample.0``/``.1``), so ``state_dict`` is the reference
 ``.pth.tar`` layout.
+
+``stat_fusion='pallas'|'gram'`` makes each Bottleneck produce its 1×1
+convs' BatchNorm statistics with the convs themselves
+(:func:`~multimodal_active_ai_tpu_torch.models.conv_bn.conv1x1_bn`, reading
+the same ``conv``/``bn`` modules, so the ``state_dict`` is unchanged); the
+3×3 conv keeps the injected norm layer and BasicBlocks ignore the option.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from multimodal_active_ai_tpu_torch.models.conv_bn import IMPLS, conv1x1_bn
 from multimodal_active_ai_tpu_torch.models.norm import make_norm
 
 # variance_scaling(2, fan_out, truncated_normal): flax's stddev correction
@@ -55,7 +62,8 @@ class BasicBlock(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, norm=None, groups: int = 1,
-                 base_width: int = 64, generator=None):
+                 base_width: int = 64, stat_fusion: str | None = None,
+                 generator=None):
         super().__init__()
         self.conv1 = _conv(inplanes, planes, 3, stride, generator=generator)
         self.bn1 = norm(planes)
@@ -75,14 +83,17 @@ class BasicBlock(nn.Module):
 
 class Bottleneck(nn.Module):
     """1×1 → 3×3(stride) → 1×1 bottleneck, v1.5 placement (reference
-    ``resnet.py:80-135``)."""
+    ``resnet.py:80-135``). With ``stat_fusion`` the three 1×1 conv + norm
+    pairs run as :func:`conv1x1_bn`."""
 
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, norm=None, groups: int = 1,
-                 base_width: int = 64, generator=None):
+                 base_width: int = 64, stat_fusion: str | None = None,
+                 generator=None):
         super().__init__()
+        self.stat_fusion = stat_fusion
         width = int(planes * (base_width / 64.0)) * groups
         self.conv1 = _conv(inplanes, width, 1, generator=generator)
         self.bn1 = norm(width)
@@ -96,10 +107,17 @@ class Bottleneck(nn.Module):
             norm(planes * self.expansion)) if downsample else None)
 
     def forward(self, x):
-        identity = x if self.downsample is None else self.downsample(x)
-        out = self.relu(self.bn1(self.conv1(x)))
+        fusion = self.stat_fusion
+        if not fusion:
+            identity = x if self.downsample is None else self.downsample(x)
+            out = self.relu(self.bn1(self.conv1(x)))
+            out = self.relu(self.bn2(self.conv2(out)))
+            out = self.bn3(self.conv3(out))
+            return self.relu(out + identity)
+        identity = x if self.downsample is None else conv1x1_bn(x, *self.downsample, fusion)
+        out = self.relu(conv1x1_bn(x, self.conv1, self.bn1, fusion))
         out = self.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+        out = conv1x1_bn(out, self.conv3, self.bn3, fusion)
         return self.relu(out + identity)
 
 
@@ -110,8 +128,14 @@ class ResNet(nn.Module):
     def __init__(self, block: type = BasicBlock, layers: Sequence[int] = (2, 2, 2, 2),
                  groups: int = 1, width_per_group: int = 64,
                  crop_measures: int = 4, norm_kind: str = "bn",
+                 stat_fusion: str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
+        if stat_fusion and norm_kind not in ("bn", "bn_fused"):
+            raise ValueError(f"stat_fusion embeds BatchNorm semantics; incompatible "
+                             f"with norm_kind={norm_kind!r}")
+        if stat_fusion and stat_fusion not in IMPLS:
+            raise ValueError(f"stat_fusion {stat_fusion!r} not in {IMPLS}")
         norm = make_norm(norm_kind)
         self.conv1 = _conv(3 * crop_measures, 64, 7, generator=generator)
         self.bn1 = norm(64)
@@ -124,7 +148,8 @@ class ResNet(nn.Module):
                 s = stride if b == 0 else 1
                 needs_down = s != 1 or inplanes != planes * block.expansion
                 mods.append(block(inplanes, planes, s, needs_down, norm, groups,
-                                  width_per_group, generator=generator))
+                                  width_per_group, stat_fusion=stat_fusion or None,
+                                  generator=generator))
                 inplanes = planes * block.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*mods))
 

@@ -4,6 +4,8 @@ Port of ``multimodal_active_ai_tpu/models/simclr.py``: ``g(f(glimpses))``
 on ``(B, 30, 30, 12)`` NHWC glimpse stacks, output cast to float32. With
 ``dtype=torch.bfloat16`` the forward runs under autocast: convolutions and
 products in bf16, parameters and BatchNorm statistics in float32.
+``stat_fusion`` (``'pallas'``/``'gram'``) fuses the Bottleneck 1×1 convs'
+BatchNorm statistics into the convs (``models/conv_bn.py``).
 """
 
 from __future__ import annotations
@@ -22,10 +24,12 @@ class SimCLRModule(nn.Module):
     def __init__(self, arch: str = "ResNet18", projection_hidden: int = 1024,
                  projection_dim: int = 128, norm_kind: str = "bn",
                  dtype: torch.dtype = torch.float32,
+                 stat_fusion: str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.dtype = dtype
-        self.f = build_encoder(arch, norm_kind=norm_kind, generator=generator)
+        self.f = build_encoder(arch, norm_kind=norm_kind, stat_fusion=stat_fusion,
+                               generator=generator)
         self.g = MLP(encoder_feature_dim(arch) * 16, projection_hidden,
                      projection_dim, generator=generator)
 

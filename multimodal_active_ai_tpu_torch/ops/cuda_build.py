@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface, loaded with ``ctypes``. A
 build happens at first use, into ``csrc/build/`` (listed in ``.gitignore``),
-and is reused while the source, the flags and the compiler are unchanged:
-the library's file name carries a hash of all three.
+and is reused while the source, the shared ``csrc/*.cuh`` headers, the flags
+and the compiler are unchanged: the library's file name carries a hash of
+all four.
 
 Nothing here runs at import time, so modules that launch kernels import
 cleanly on machines without ``nvcc`` or a GPU.
@@ -61,6 +62,8 @@ def find_nvcc() -> str:
 def _target(name: str, nvcc: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # shared device code
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     h.update(os.path.realpath(nvcc).encode())
     return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

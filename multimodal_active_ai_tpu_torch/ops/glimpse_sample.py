@@ -16,6 +16,12 @@ On a CUDA tensor :func:`glimpse_sample` launches the kernel of
 taps read straight from the mip, f32 accumulation, all levels in one
 launch) or raises; on a CPU tensor it runs the plain version. There is no
 fallback from the kernel to the plain version.
+
+:func:`hat_sample` is the one-level form, the counterpart of the TPU kernel
+``hat_sample``: ``(B, P, 2)`` window-relative coordinates in, ``(B, P, 3)``
+out, no scale, y weights rounded to bf16 as that kernel rounds them. Its
+plain version :func:`hat_sample_plain` follows ``hat_sample_xla``; its
+kernel is the second entry point of ``csrc/glimpse_sample.cu``.
 """
 
 from __future__ import annotations
@@ -50,29 +56,34 @@ def glimpse_sample_plain(mips: Sequence[torch.Tensor], rel_y: torch.Tensor,
     Returns ``(B, 3L, P)`` float32.
     """
     b, levels, p = rel_y.shape
-    src_b = mips[0].shape[0]
     _check_geometry(mips, wins, msizes, b, levels)
-    dev = rel_y.device
-    rows = torch.arange(b, device=dev) % src_b
-    outs = []
-    for li, (mip, win) in enumerate(zip(mips, wins)):
-        m = mip.shape[1]
-        img = mip.view(src_b, m, m, 3)
-        s = start[:, li].long().clamp(0, m - win)                 # (B, 2)
-        ar = torch.arange(win, device=dev)
-        iy = s[:, 0:1] + ar                                         # (B, win)
-        ix = s[:, 1:2] + ar
-        patch = img[rows[:, None, None], iy[:, :, None], ix[:, None, :]]
-        idx = ar.to(torch.float32)
-        ry = rel_y[:, li].clamp(0.0, win - 1.0)[..., None]         # (B, P, 1)
-        rx = rel_x[:, li].clamp(0.0, win - 1.0)[..., None]
-        wy = torch.clamp_min(1.0 - (ry - idx).abs(), 0.0)          # (B, P, win)
-        wx = torch.clamp_min(1.0 - (rx - idx).abs(), 0.0)
-        wy = wy.to(torch.bfloat16).to(torch.float32)
-        tmp = torch.bmm(wy, patch.to(torch.float32).reshape(b, win, win * 3))
-        v = (tmp.view(b, p, win, 3) * wx[..., None]).sum(2)         # (B, P, 3)
-        outs.append(v * scale[:, li, :, None])
+    rows = torch.arange(b, device=rel_y.device) % mips[0].shape[0]
+    outs = [_hat_level(mip, rows, rel_y[:, li], rel_x[:, li], start[:, li], win)
+            * scale[:, li, :, None] for li, (mip, win) in enumerate(zip(mips, wins))]
     return torch.cat(outs, -1).transpose(1, 2).contiguous()
+
+
+def _hat_level(mip: torch.Tensor, rows: torch.Tensor, rel_y: torch.Tensor,
+               rel_x: torch.Tensor, start: torch.Tensor, win: int) -> torch.Tensor:
+    """One level of the plain sampler: plan row ``b`` reads mip image
+    ``rows[b]``; ``rel_y``/``rel_x`` ``(B, P)``, ``start`` ``(B, 2)``.
+    Returns ``(B, P, 3)`` float32."""
+    b, p = rel_y.shape
+    m = mip.shape[1]
+    img = mip.view(mip.shape[0], m, m, 3)
+    s = start.long().clamp(0, m - win)                            # (B, 2)
+    ar = torch.arange(win, device=rel_y.device)
+    iy = s[:, 0:1] + ar                                           # (B, win)
+    ix = s[:, 1:2] + ar
+    patch = img[rows[:, None, None], iy[:, :, None], ix[:, None, :]]
+    idx = ar.to(torch.float32)
+    ry = rel_y.clamp(0.0, win - 1.0)[..., None]                   # (B, P, 1)
+    rx = rel_x.clamp(0.0, win - 1.0)[..., None]
+    wy = torch.clamp_min(1.0 - (ry - idx).abs(), 0.0)             # (B, P, win)
+    wx = torch.clamp_min(1.0 - (rx - idx).abs(), 0.0)
+    wy = wy.to(torch.bfloat16).to(torch.float32)
+    tmp = torch.bmm(wy, patch.to(torch.float32).reshape(b, win, win * 3))
+    return (tmp.view(b, p, win, 3) * wx[..., None]).sum(2)
 
 
 def glimpse_sample(mips: Sequence[torch.Tensor], rel_y: torch.Tensor,
@@ -125,16 +136,83 @@ def glimpse_sample(mips: Sequence[torch.Tensor], rel_y: torch.Tensor,
 glimpse_sample.launches = 0
 
 
+def hat_sample_plain(mip: torch.Tensor, rel: torch.Tensor, start: torch.Tensor,
+                     win: int) -> torch.Tensor:
+    """One level in plain PyTorch, step for step as ``hat_sample_xla``.
+
+    Args:
+      mip: ``(B, M, 3·M)`` bf16 channel-interleaved mip.
+      rel: ``(B, P, 2)`` float32 window-relative ``(y, x)`` coordinates
+        (clamped to the window).
+      start: ``(B, 2)`` int window origins (clamped to ``[0, M-win]``).
+      win: window side.
+
+    Returns ``(B, P, 3)`` float32.
+    """
+    _check_hat_geometry(mip, rel, start, win)
+    rows = torch.arange(mip.shape[0], device=rel.device)
+    return _hat_level(mip, rows, rel[..., 0], rel[..., 1], start, win)
+
+
+def hat_sample(mip: torch.Tensor, rel: torch.Tensor, start: torch.Tensor,
+               win: int) -> torch.Tensor:
+    """One level; arguments and result as in :func:`hat_sample_plain`.
+
+    CUDA tensors launch the ``hat_sample`` kernel on the current stream and
+    add one to ``hat_sample.launches``; CPU tensors take the plain version.
+    On CUDA ``start`` must be int32 and every tensor contiguous.
+    """
+    if rel.device.type == "cpu":
+        return hat_sample_plain(mip, rel, start, win)
+    if rel.device.type != "cuda":
+        raise ValueError(f"hat_sample: unsupported device {rel.device}")
+    _check_hat_geometry(mip, rel, start, win)
+    b, p, _ = rel.shape
+    dev = rel.device
+    _check_tensor("rel", rel, torch.float32, (b, p, 2), dev, "hat_sample")
+    _check_tensor("start", start, torch.int32, (b, 2), dev, "hat_sample")
+    _check_tensor("mip", mip, torch.bfloat16, tuple(mip.shape), dev, "hat_sample")
+    lib = _library()
+    out = torch.empty((b, p, 3), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.hat_sample_launch(mip.data_ptr(), b, mip.shape[1], int(win), p,
+                                    rel.data_ptr(), start.data_ptr(),
+                                    out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"hat_sample kernel launch failed: CUDA error {err}")
+    hat_sample.launches += 1
+    return out
+
+
+hat_sample.launches = 0
+
+
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load("glimpse_sample")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = lib.glimpse_sample_launch
     if not fn.argtypes:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ci),
                        ctypes.POINTER(ci), ci, ci, ci, ci,
                        vp, vp, vp, vp, vp, vp]
         fn.restype = ci
+    fn = lib.hat_sample_launch
+    if not fn.argtypes:
+        fn.argtypes = [vp, ci, ci, ci, ci, vp, vp, vp, vp]
+        fn.restype = ci
     return lib
+
+
+def _check_hat_geometry(mip, rel, start, win):
+    if mip.dim() != 3 or mip.shape[2] != 3 * mip.shape[1]:
+        raise ValueError(f"hat_sample: mip must be (B, M, 3M), got {tuple(mip.shape)}")
+    if rel.dim() != 3 or rel.shape[0] != mip.shape[0] or rel.shape[2] != 2:
+        raise ValueError(f"hat_sample: rel must be (B, P, 2), got {tuple(rel.shape)}")
+    if tuple(start.shape) != (mip.shape[0], 2):
+        raise ValueError(f"hat_sample: start must be (B, 2), got {tuple(start.shape)}")
+    if not 1 <= win <= mip.shape[1]:
+        raise ValueError(f"hat_sample: window {win} outside [1, {mip.shape[1]}]")
 
 
 def _check_geometry(mips, wins, msizes, b, levels):
@@ -153,12 +231,12 @@ def _check_geometry(mips, wins, msizes, b, levels):
             raise ValueError(f"window {win} outside [1, {mip.shape[1]}] at level {li}")
 
 
-def _check_tensor(name, t, dtype, shape, device):
+def _check_tensor(name, t, dtype, shape, device, op="glimpse_sample"):
     if t.device != device:
-        raise ValueError(f"glimpse_sample: {name} on {t.device}, expected {device}")
+        raise ValueError(f"{op}: {name} on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise TypeError(f"glimpse_sample: {name} is {t.dtype}, expected {dtype}")
+        raise TypeError(f"{op}: {name} is {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"glimpse_sample: {name} shape {tuple(t.shape)} != {tuple(shape)}")
+        raise ValueError(f"{op}: {name} shape {tuple(t.shape)} != {tuple(shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"glimpse_sample: {name} must be contiguous")
+        raise ValueError(f"{op}: {name} must be contiguous")

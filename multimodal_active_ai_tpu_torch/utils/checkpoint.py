@@ -6,7 +6,11 @@
   is the port's own copy of the JAX package's
   ``export_torch_simclr_state_dict``: convs HWIO → OIHW, Dense kernels
   transposed, and ``Dense_0``'s rows permuted from the NHWC flatten to the
-  NCHW flatten.
+  NCHW flatten. Variables of a JAX model built with ``stat_fusion`` (the
+  ``FusedConv1x1BN`` Bottleneck layout) are first mapped to the unfused
+  layout, and ``norm_kind='bn_fused'``'s ``FusedStatsBatchNorm_k`` slots read
+  as the ``BatchNorm_k`` they replace, so every form gives the same
+  ``state_dict``.
 * :func:`save_checkpoint` / :func:`load_checkpoint` write and read the
   driver's payload (``epoch``, ``step``, ``state_dict``, ``best_prec1``,
   ``optimizer``, the loss/top-1/top-5 histories and ``total_time``) with
@@ -23,6 +27,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from multimodal_active_ai_tpu_torch.models.conv_bn import is_fused_layout, unfuse_variables
 
 
 def _conv_hwio_to_oihw(k) -> np.ndarray:
@@ -45,6 +51,23 @@ def _has_downsample(block_p: dict, convs: list[str]) -> bool:
     return len(convs) >= 3 and last[2] == c_in_first and last[:2] == (1, 1)
 
 
+def _as_batchnorm_slots(tree):
+    """``FusedStatsBatchNorm_k`` → ``BatchNorm_k`` throughout ``tree``: the
+    two kinds hold the same variables, and a block uses one kind."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for k, v in tree.items():
+        name = "BatchNorm_" + k[len(_FUSED_BN):] if k.startswith(_FUSED_BN) else k
+        if name in out or (name != k and name in tree):
+            raise ValueError(f"both {k} and {name} in one module")
+        out[name] = _as_batchnorm_slots(v)
+    return out
+
+
+_FUSED_BN = "FusedStatsBatchNorm_"
+
+
 def linear_on_flattened_conv(kernel, chw: tuple[int, int, int]) -> np.ndarray:
     """A flax Dense kernel ``(H·W·C, out)`` consuming the NHWC flatten →
     the torch Linear weight ``(out, C·H·W)`` consuming the NCHW flatten."""
@@ -60,8 +83,12 @@ def from_jax_variables(params: dict, batch_stats: dict) -> "OrderedDict[str, tor
     """JAX ``SimCLRModule`` variables → this package's ``state_dict``.
 
     Values are float32 tensors; ``num_batches_tracked`` is an int64 zero,
-    as the reference torch checkpoints carry it.
+    as the reference torch checkpoints carry it. Either Bottleneck layout
+    and either BatchNorm kind is accepted (their slots are mapped first).
     """
+    params, batch_stats = _as_batchnorm_slots(params), _as_batchnorm_slots(batch_stats)
+    if is_fused_layout(params):
+        params, batch_stats = unfuse_variables(params, batch_stats)
     sd: OrderedDict[str, torch.Tensor] = OrderedDict()
 
     def put(key, value, dtype=np.float32):

@@ -10,6 +10,11 @@ median step, device time by kernel group and the top kernels by device
 time, then one JSON line with the same numbers.
 
     python3 tools/profile_torch_step.py --arch ResNet50 -b 128 -f 10
+    python3 tools/profile_torch_step.py --stat-fusion pallas --norm-kind bn_fused
+
+``--stat-fusion`` and ``--norm-kind`` select the fused BatchNorm
+statistics (the ``conv1x1_stats`` and ``stat_sums`` kernels), as the JAX
+package's bench takes ``BENCH_STATS`` and ``BENCH_NORM``.
 
 Needs CUDA; it raises without it.
 """
@@ -35,6 +40,9 @@ from multimodal_active_ai_tpu_torch.train import optimizers, schedule, simclr_tr
 # kernel-name fragments → group, first match wins
 GROUPS = [
     ("glimpse_sample", "retina sampler (B1)"),
+    ("stat_partials", "BN statistics kernel (B2)"),
+    ("conv1x1_stats", "1x1 conv + statistics kernel (B3)"),
+    ("column_sums", "B2/B3 partial sums"),
     ("conv", "convolution"), ("gemm", "matmul/conv gemm"), ("sm90_", "matmul/conv gemm"),
     ("cutlass", "matmul/conv gemm"), ("cudnn", "convolution"), ("nchw", "convolution"),
     ("nhwc", "convolution"), ("wgrad", "convolution"), ("dgrad", "convolution"),
@@ -63,6 +71,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=20)
     ap.add_argument("--no-bf16", dest="bf16", action="store_false")
+    ap.add_argument("--stat-fusion", default="", choices=["", "gram", "pallas"])
+    ap.add_argument("--norm-kind", default="bn", choices=["bn", "bn_fused"])
     args = ap.parse_args(argv)
 
     device = resolve_device("cuda")
@@ -73,7 +83,8 @@ def main(argv=None) -> int:
                          text=True).stdout.strip().splitlines()[0]
     b, s = args.batch_size, args.canvas_size
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    model = SimCLRModule(arch=args.arch, dtype=dtype,
+    model = SimCLRModule(arch=args.arch, dtype=dtype, norm_kind=args.norm_kind,
+                         stat_fusion=args.stat_fusion or None,
                          generator=torch.Generator().manual_seed(15))
     model = model.to(device).to(memory_format=torch.channels_last)
     opt = optimizers.get_optimizer("adam", model.parameters())
@@ -119,7 +130,8 @@ def main(argv=None) -> int:
     times.sort()
     median = times[len(times) // 2]
     print(f"[{gpu}] {args.arch} b={b} F={args.num_fixations} canvas {s} "
-          f"{'bf16' if args.bf16 else 'f32'}: step {median:.1f} ms (median of "
+          f"{'bf16' if args.bf16 else 'f32'} norm {args.norm_kind} stat-fusion "
+          f"{args.stat_fusion or 'none'}: step {median:.1f} ms (median of "
           f"{[round(t, 1) for t in times]}); traced step {traced_ms:.1f} ms "
           f"(host-side profiler overhead included); device busy {busy_ms:.1f} ms "
           f"= {100 * busy_ms / median:.1f}% of the untraced median step; "
@@ -133,6 +145,7 @@ def main(argv=None) -> int:
         print(f"  {ms:9.2f} ms  {n:5d}x  {name[:110]}")
     print(json.dumps({
         "gpu": gpu, "arch": args.arch, "batch": b, "fixations": args.num_fixations,
+        "norm_kind": args.norm_kind, "stat_fusion": args.stat_fusion,
         "step_ms": median, "step_ms_all": times, "traced_step_ms": traced_ms,
         "device_busy_ms": busy_ms, "busy_share_of_step": busy_ms / median,
         "launches": len(kernels),

@@ -11,11 +11,14 @@ result line):
 1. Build every CUDA kernel of the port from ``csrc/`` with ``nvcc`` (one
    process per source, all started together: B1 and B4 in
    ``glimpse_sample.cu``, B2 ``stat_sums.cu``, B3 ``conv1x1_stats.cu``) and
-   print what ``-Xptxas -v`` reports, plus the card's name and power limit.
+   print what ``-Xptxas -v`` reports, plus the card's name and power limit;
+   fail if B3's wgmma kernels spill.
 2. Hold each kernel against its plain PyTorch version on the card at the
    shapes its path gives it, plus edge cases (B2 and B3 forward and
    backward), and time kernel, plain version, the nearest library call and
-   the bound (bytes or operations over the card's peak rate). Then hold
+   the bound (bytes or operations over the card's peak rate), printing each
+   shape's share of its bound and B3's route (fatal if a main-path shape
+   leaves the wgmma route). Then hold
    small float32 train steps on the card against the same steps on the
    CPU: ResNet10, and ResNet-50 with ``norm_kind='bn_fused'`` and
    ``stat_fusion='pallas'``; and that fused ResNet-50 at b=1, whose 1x1
@@ -352,6 +355,21 @@ def check_hat_sample(torch, gs, args):
     }
 
 
+def spills(log: str, kernel_fragment: str) -> list[str]:
+    """The ``-Xptxas -v`` property lines of the kernels whose mangled name
+    holds ``kernel_fragment`` and that spill registers."""
+    bad, current = [], ""
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            current = line
+        elif "spill" in line and kernel_fragment in current:
+            stores, loads = (int(line.split(" bytes spill " + kind)[0].split()[-1])
+                             for kind in ("stores", "loads"))
+            if stores or loads:
+                bad.append(f"{current.split()[-1]}: {line.strip()}")
+    return bad
+
+
 def check_stat_sums(torch, ss):
     """Phase 2, B2: ``stat_sums`` at every ``(N, C)`` of the ResNet-50 b=128
     ``bn_fused`` + ``stat_fusion='pallas'`` forward, in bf16 and float32,
@@ -406,12 +424,13 @@ def check_stat_sums(torch, ss):
         bms, by = bound(n * c * 2 + 2 * c * 4, 3 * n * c / PEAK_F32_FLOPS)
         print(f"stat_sums times ({n}, {c}) bf16 x{count}: kernel {kernel:.4f} ms, plain "
               f"{plain:.4f} ms, library (torch.sum of x and x^2) {lib:.4f} ms, bound "
-              f"{bms:.4f} ms ({by})")
+              f"{bms:.4f} ms ({by}; {100 * bms / kernel:.1f}% of it)")
         totals.update(kernel=count * kernel, plain=count * plain, library=count * lib,
                       bound=count * bms, **{f"bound_{by}": count * bms})
     print(f"stat_sums times, one forward ({sum(shapes.values())} calls): kernel "
           f"{totals['kernel']:.4f} ms, plain {totals['plain']:.4f} ms, library "
-          f"{totals['library']:.4f} ms, bound {totals['bound']:.4f} ms")
+          f"{totals['library']:.4f} ms, bound {totals['bound']:.4f} ms "
+          f"({100 * totals['bound'] / totals['kernel']:.1f}% of it)")
     return {
         "name": "stat_sums",
         "route": "cuda",
@@ -426,13 +445,16 @@ def check_stat_sums(torch, ss):
     }
 
 
-def check_conv1x1_stats(torch, cs):
+def check_conv1x1_stats(torch, cs, sms):
     """Phase 2, B3: ``conv1x1_stats`` at the 15 distinct ``(M, K, N)`` of
     ResNet-50's 36 fused 1x1 convs per forward at b=128 (bf16), float32 at
-    two of them, and the tails (96, 24, 40), (64, 16, 64), (100, 12, 7),
-    against ``conv1x1_stats_plain``; gradients with nonzero cotangents on
-    y, Σy and Σy² against autograd through the plain version; times (bf16)
-    per shape and summed over one forward.
+    two of them, and the tails (96, 24, 40), (64, 16, 64), (100, 12, 7) and,
+    in bf16, (1000, 64, 200) (M and N not multiples of the tile), against
+    ``conv1x1_stats_plain``; gradients with nonzero cotangents on y, Σy and
+    Σy² against autograd through the plain version; times (bf16) per shape
+    and summed over one forward. Each case prints its route
+    (``conv1x1_plan`` on this card's ``sms``); a main-path shape off the
+    wgmma route is fatal.
 
     Tolerances, normwise (max error over the largest reference value): y
     in bf16 2^-7 (the two float32 products may round to neighbouring bf16
@@ -449,9 +471,13 @@ def check_conv1x1_stats(torch, cs):
     cases += [((28800, 512, 128), torch.float32), ((2048, 1024, 2048), torch.float32)]
     cases += [(mkn, dt) for mkn in ((96, 24, 40), (64, 16, 64), (100, 12, 7))
               for dt in (torch.bfloat16, torch.float32)]
+    cases += [((1000, 64, 200), torch.bfloat16)]
     errs, totals = [], Counter()
     for (m, k, n), dt in cases:
         bf16 = dt == torch.bfloat16
+        route = cs.conv1x1_plan(m, k, n, sms, bf16).route
+        if bf16 and (m, k, n) in shapes and route != "wgmma":
+            fail(f"conv1x1_stats main-path shape {(m, k, n)} takes the {route} route")
         x = torch.relu(torch.randn(m, k, device=dev, generator=gen)).to(dt)
         w = (torch.randn(n, k, device=dev, generator=gen) * (2.0 / k) ** 0.5).to(dt)
         got = cs.conv1x1_stats(x, w)
@@ -475,7 +501,7 @@ def check_conv1x1_stats(torch, cs):
         ok = (yerr[1] <= ytol and max(e[1] for e in serr) <= 1e-4
               and max(e[1] for e in gerr) <= gtol and same
               and all(bool(torch.isfinite(t).all()) for t in got))
-        print(f"conv1x1_stats ({m}, {k}, {n}) {str(dt)[6:]}: normwise err y {yerr[1]:.3g} "
+        print(f"conv1x1_stats ({m}, {k}, {n}) {str(dt)[6:]} [{route}]: normwise err y {yerr[1]:.3g} "
               f"(tol {ytol:.3g}), sum {serr[0][1]:.3g} sumsq {serr[1][1]:.3g} (tol 1e-4), "
               f"grad x {gerr[0][1]:.3g} w {gerr[1][1]:.3g} (tol {gtol:.3g}), same bits on "
               f"a second call {same} {'ok' if ok else 'MISMATCH'}")
@@ -490,15 +516,17 @@ def check_conv1x1_stats(torch, cs):
         lib = time_ms(lambda: torch.matmul(x, w.t()), torch, 20, flush)
         bms, by = bound((m * k + n * k + m * n) * 2 + 2 * n * 4,
                         2 * m * n * k / PEAK_BF16_TENSOR_FLOPS + 3 * m * n / PEAK_F32_FLOPS)
-        print(f"conv1x1_stats times ({m}, {k}, {n}) bf16 x{count}: kernel {kernel:.4f} ms, "
-              f"plain {plain:.4f} ms, library (torch.matmul bf16, no statistics) "
-              f"{lib:.4f} ms, bound {bms:.4f} ms ({by})")
+        print(f"conv1x1_stats times ({m}, {k}, {n}) bf16 x{count} [{route}]: kernel "
+              f"{kernel:.4f} ms, plain {plain:.4f} ms, library (torch.matmul bf16, no "
+              f"statistics) {lib:.4f} ms, bound {bms:.4f} ms ({by}; {100 * bms / kernel:.1f}% "
+              f"of it)")
         totals.update(kernel=count * kernel, plain=count * plain, library=count * lib,
                       bound=count * bms, **{f"bound_{by}": count * bms})
     print(f"conv1x1_stats times, one forward (36 calls): kernel {totals['kernel']:.4f} ms, "
           f"plain {totals['plain']:.4f} ms, library {totals['library']:.4f} ms, bound "
           f"{totals['bound']:.4f} ms ({totals['bound_bytes']:.4f} of it bound by bytes, "
-          f"{totals['bound_operations']:.4f} by operations)")
+          f"{totals['bound_operations']:.4f} by operations; "
+          f"{100 * totals['bound'] / totals['kernel']:.1f}% of the kernel time)")
     return {
         "name": "conv1x1_stats",
         "route": "cuda",
@@ -836,6 +864,9 @@ def main() -> int:
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
     for b in built.values():
         print(f"--- nvcc -Xptxas -v: {b.name} ---\n{b.log.strip()}")
+    spilled = spills(built["conv1x1_stats"].log, "wgmma_kernel")
+    if spilled:
+        fail("B3's wgmma kernels spill registers:\n" + "\n".join(spilled))
     device_name = gpu_name_and_power()
     print(f"gpu (name, power limit): {device_name}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}, "
@@ -847,7 +878,7 @@ def main() -> int:
     b1, args = check_glimpse_sample(torch, gs, retina)
     rows = {"glimpse_sample": b1,
             "stat_sums": check_stat_sums(torch, ss),
-            "conv1x1_stats": check_conv1x1_stats(torch, cs),
+            "conv1x1_stats": check_conv1x1_stats(torch, cs, ss.sm_count(0)),
             "hat_sample": check_hat_sample(torch, gs, args)}
     check_small_step(torch, retina, gs)
     counters = {"glimpse_sample": gs.glimpse_sample, "stat_sums": ss.stat_sums,

@@ -8,24 +8,63 @@ flattened) it returns the per-channel ``(Σx, Σx²)`` in float32, accumulated
 in float32 whatever the input type (bf16 or float32).
 
 On a CUDA tensor the forward launches the kernel of ``csrc/stat_sums.cu``
-(row blocks spread over the SMs, float32 partial sums per block, then a
-second pass that adds the partials in a fixed order) or raises; on a CPU
-tensor it runs :func:`stat_sums_plain`. There is no fallback from the kernel
-to the plain version. The backward, ``dx = dΣ + 2·x·dΣ²``, is plain torch,
-as it is plain jnp in the JAX package.
+(one launch: at most one wave of row blocks, float32 partial sums per
+block, and the last block of each channel tile adds the partials in a fixed
+order) or raises; on a CPU tensor it runs :func:`stat_sums_plain`. There is
+no fallback from the kernel to the plain version. The backward,
+``dx = dΣ + 2·x·dΣ²``, is plain torch, as it is plain jnp in the JAX package.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from multimodal_active_ai_tpu_torch.ops import cuda_build
 
-THREADS = 256          # SS_THREADS in csrc/stat_sums.cu
-BLOCKS_PER_SM = 4      # row blocks aimed at per SM (several in flight each)
+THREADS = 1024         # SS_THREADS in csrc/stat_sums.cu
+TILE_C = 64            # SS_TILE_C: channels per column tile
+BLOCKS_PER_SM = 1      # resident blocks per SM (__launch_bounds__)
+TICKETS = 1024         # per-device ticket counters (column tiles per call)
+
+
+class StatSumsPlan(NamedTuple):
+    """Launch plan of the ``stat_sums`` kernel for one ``(N, C)`` input:
+    ``cols`` 16-byte vectors (``vec``) or channels side by side in a block
+    of 1024 threads, ``1024 // cols`` row slots, ``tiles_c`` channel tiles
+    (``blockIdx.y``) and ``row_blocks`` runs of ``rows_per_block`` rows
+    (``blockIdx.x``); one partial row of ``2·cols·V`` floats per block."""
+
+    vec: bool
+    v: int
+    cols: int
+    tiles_c: int
+    row_blocks: int
+    rows_per_block: int
+
+    @property
+    def blocks(self) -> int:
+        return self.row_blocks * self.tiles_c
+
+
+def stat_sums_plan(n: int, c: int, element_size: int, vec: bool, sms: int) -> StatSumsPlan:
+    """The grid for ``n`` rows of ``c`` channels: at most one wave
+    (``sms × BLOCKS_PER_SM`` blocks), each row run at least one pass of the
+    block's row slots, no block empty. ``cols`` is a power of two, so the
+    lanes of a warp that share channels are a shuffle pattern. Pure Python,
+    so CPU tests hold it."""
+    v = 16 // element_size if vec else 1
+    vcols = c // v
+    cols = 1 << (min(vcols, TILE_C // v).bit_length() - 1)   # a power of two
+    slots = THREADS // cols
+    tiles_c = -(-vcols // cols)
+    row_blocks = max(1, min(BLOCKS_PER_SM * sms // tiles_c, -(-n // slots)))
+    rows_per_block = -(-n // (row_blocks * slots)) * slots
+    row_blocks = -(-n // rows_per_block)
+    return StatSumsPlan(vec, v, cols, tiles_c, row_blocks, rows_per_block)
 
 
 def stat_sums_plain(x2d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -45,24 +84,20 @@ def _stat_sums_cuda(x2d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if n < 1 or c < 1:
         raise ValueError(f"stat_sums: empty input {tuple(x2d.shape)}")
     dev = x2d.device
-    per_vec = 16 // x2d.element_size()
-    vec = c % per_vec == 0 and x2d.data_ptr() % 16 == 0
-    vcols = c // per_vec if vec else c
-    cols = min(vcols, THREADS)
-    rows_per_iter = THREADS // cols
-    tiles_c = -(-vcols // cols)
-    sms = _sm_count(dev.index)
-    # at least 4 row passes per block, at most ~BLOCKS_PER_SM blocks per SM
-    groups = max(1, min(-(-n // (4 * rows_per_iter)),
-                        BLOCKS_PER_SM * sms // tiles_c, 65535))
-    partial = torch.empty((groups, 2, c), dtype=torch.float32, device=dev)
+    vec = c % (16 // x2d.element_size()) == 0 and x2d.data_ptr() % 16 == 0
+    plan = stat_sums_plan(n, c, x2d.element_size(), vec, sm_count(dev.index))
+    partial = torch.empty((plan.blocks, 2, plan.cols * plan.v), dtype=torch.float32,
+                          device=dev)
     out = torch.empty((2, c), dtype=torch.float32, device=dev)
+    tickets = ticket_counters("stat_sums", dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.stat_sums_launch(x2d.data_ptr(), n, c, int(x2d.dtype == torch.bfloat16),
-                                   int(vec), cols, rows_per_iter, groups,
-                                   partial.data_ptr(), out.data_ptr(), stream)
+                                   int(vec), plan.cols, plan.row_blocks, plan.tiles_c,
+                                   plan.rows_per_block, partial.data_ptr(),
+                                   tickets.data_ptr(), tickets.numel(), out.data_ptr(),
+                                   stream)
     if err != 0:
         raise RuntimeError(f"stat_sums kernel launch failed: CUDA error {err}")
     stat_sums.launches += 1
@@ -115,8 +150,15 @@ def mean_var_from_sums(s: torch.Tensor, sq: torch.Tensor, n: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
+def sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def ticket_counters(kernel: str, device: torch.device) -> torch.Tensor:
+    """``TICKETS`` zeroed int32 counters on ``device`` for ``kernel``'s
+    last-block finish, allocated once; each launch leaves them 0 again."""
+    return torch.zeros(TICKETS, dtype=torch.int32, device=device)
 
 
 def _library() -> ctypes.CDLL:
@@ -124,6 +166,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.stat_sums_launch
     if not fn.argtypes:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, ctypes.c_longlong, ci, ci, ci, ci, ci, ci, vp, vp, vp]
+        ll = ctypes.c_longlong
+        fn.argtypes = [vp, ll, ci, ci, ci, ci, ci, ci, ll, vp, vp, ci, vp, vp]
         fn.restype = ci
     return lib

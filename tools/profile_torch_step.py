@@ -40,9 +40,8 @@ from multimodal_active_ai_tpu_torch.train import optimizers, schedule, simclr_tr
 # kernel-name fragments → group, first match wins
 GROUPS = [
     ("glimpse_sample", "retina sampler (B1)"),
-    ("stat_partials", "BN statistics kernel (B2)"),
+    ("stat_sums", "BN statistics kernel (B2)"),
     ("conv1x1_stats", "1x1 conv + statistics kernel (B3)"),
-    ("column_sums", "B2/B3 partial sums"),
     ("conv", "convolution"), ("gemm", "matmul/conv gemm"), ("sm90_", "matmul/conv gemm"),
     ("cutlass", "matmul/conv gemm"), ("cudnn", "convolution"), ("nchw", "convolution"),
     ("nhwc", "convolution"), ("wgrad", "convolution"), ("dgrad", "convolution"),
@@ -118,6 +117,9 @@ def main(argv=None) -> int:
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.is_user_annotation]
+    # memsets and copies are device events too, but no kernel launches; their
+    # number moves with the allocator's state from run to run
+    memory_ops = sum(e.name.startswith(("Memset", "Memcpy")) for e in kernels)
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3 if kernels else 0.0
     by_group: dict[str, float] = {}
     by_name: dict[str, list] = {}
@@ -135,7 +137,7 @@ def main(argv=None) -> int:
           f"{[round(t, 1) for t in times]}); traced step {traced_ms:.1f} ms "
           f"(host-side profiler overhead included); device busy {busy_ms:.1f} ms "
           f"= {100 * busy_ms / median:.1f}% of the untraced median step; "
-          f"{len(kernels)} kernel launches")
+          f"{len(kernels) - memory_ops} kernel launches (+{memory_ops} memsets/copies)")
     print("device time by group:")
     for g, ms in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"  {ms:9.2f} ms  {100 * ms / busy_ms:5.1f}%  {g}")
@@ -148,7 +150,7 @@ def main(argv=None) -> int:
         "norm_kind": args.norm_kind, "stat_fusion": args.stat_fusion,
         "step_ms": median, "step_ms_all": times, "traced_step_ms": traced_ms,
         "device_busy_ms": busy_ms, "busy_share_of_step": busy_ms / median,
-        "launches": len(kernels),
+        "launches": len(kernels) - memory_ops, "memory_ops": memory_ops,
         "groups_ms": by_group,
         "top": [{"name": n[:200], "ms": ms, "count": c} for n, (ms, c) in top]}))
     return 0

@@ -15,10 +15,11 @@ result line):
    fail if B3's wgmma kernels spill.
 2. Hold each kernel against its plain PyTorch version on the card at the
    shapes its path gives it, plus edge cases (B2 and B3 forward and
-   backward), and time kernel, plain version, the nearest library call and
-   the bound (bytes or operations over the card's peak rate), printing each
-   shape's share of its bound and B3's route (fatal if a main-path shape
-   leaves the wgmma route). Then hold
+   backward; B1 and B4 on each of their routes), and time kernel, plain
+   version, the nearest library call and the bound (bytes or operations
+   over the card's peak rate), printing each shape's share of its bound
+   and B1's, B3's and B4's routes (fatal if a main-path shape leaves its
+   route). Then hold
    small float32 train steps on the card against the same steps on the
    CPU: ResNet10, and ResNet-50 with ``norm_kind='bn_fused'`` and
    ``stat_fusion='pallas'``; and that fused ResNet-50 at b=1, whose 1x1
@@ -181,8 +182,26 @@ def resnet50_fused_shapes(batch: int) -> tuple[Counter, Counter]:
     return b2, b3
 
 
+def odd_mip_plan(torch, gen, b: int, p: int, m: int = 45, win: int = 40):
+    """One level on a mip of odd side, which sends B1 and B4 to their
+    2-byte gathers: random bf16 pixels, window origins past both ends of the
+    mip, coordinates past both window edges, a 0/1 scale. Returns B1's
+    arguments."""
+    dev = torch.device("cuda")
+    mip = (torch.rand(b, m, 3 * m, generator=gen, device=dev) * 255).to(torch.bfloat16)
+    start = torch.randint(-3, m - win + 4, (b, 1, 2), generator=gen, device=dev,
+                          dtype=torch.int32)
+    rel = torch.rand(b, 1, p, 2, generator=gen, device=dev) * (win + 4) - 2
+    scale = (torch.rand(b, 1, p, generator=gen, device=dev) > 0.2).float()
+    return ([mip], rel[..., 0].contiguous(), rel[..., 1].contiguous(), start, scale,
+            [win], [m])
+
+
 def check_glimpse_sample(torch, gs, retina):
-    """Phase 2: kernel vs plain on the main path's plan, edge cases, times."""
+    """Phase 2: kernel vs plain on the main path's plan, edge cases and
+    both routes of each kind (16-byte and scalar coordinates and output,
+    32-bit-word and 2-byte gathers), the same bits on a second call; times.
+    A case that leaves the route its shape calls for is fatal."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     images = torch.randint(0, 256, (BATCH, CANVAS, CANVAS, 3), generator=gen,
@@ -196,22 +215,29 @@ def check_glimpse_sample(torch, gs, retina):
     args = retina.sampler_args(pyramid, params, cfg)
     mips, rel_y, rel_x, start, scale, wins, msizes = args
 
-    def compare(label, a):
+    def compare(label, a, want):
         got = gs.glimpse_sample(*a)
+        plan = gs.glimpse_sample.plan
+        again = gs.glimpse_sample(*a)
         ref = gs.glimpse_sample_plain(*a)
         torch.cuda.synchronize()
         err = (got - ref).abs()
         max_abs = float(err.max())
         max_rel = float((err / ref.abs().clamp_min(1e-3)).max())
-        ok = bool(torch.allclose(got, ref, rtol=RTOL, atol=ATOL))
-        print(f"glimpse_sample {label}: shape {tuple(got.shape)} max_abs_err "
-              f"{max_abs:.4g} max_rel_err {max_rel:.4g} "
-              f"(rtol={RTOL}, atol={ATOL}) {'ok' if ok else 'MISMATCH'}")
+        same = torch.equal(got, again)
+        ok = bool(torch.allclose(got, ref, rtol=RTOL, atol=ATOL)) and same
+        route = (plan.route, plan.gather)
+        print(f"glimpse_sample {label} [{', '.join(route)}]: shape {tuple(got.shape)} "
+              f"max_abs_err {max_abs:.4g} max_rel_err {max_rel:.4g} (rtol={RTOL}, "
+              f"atol={ATOL}), same bits on a second call {same} {'ok' if ok else 'MISMATCH'}")
         if not ok or not bool(torch.isfinite(got).all()):
             fail(f"glimpse_sample {label} disagrees with glimpse_sample_plain")
+        if route != want:
+            fail(f"glimpse_sample {label} takes the {route} route, expected {want}")
         return max_abs
 
-    errs = [compare("main-path plan (B=128, L=4, P=900)", args)]
+    main = ("vec16", "pairs")
+    errs = [compare("main-path plan (B=128, L=4, P=900)", args, main)]
 
     # tail clamp: windows flush with the mip's end, taps on the last row/col
     tail_start = start.clone()
@@ -223,13 +249,24 @@ def check_glimpse_sample(torch, gs, retina):
         tail_x[:, li, :64] = win - 1.0
         tail_y[:, li, 64:128] = win - 1.0
     errs.append(compare("tail clamp (start = M - win, ry = win - 1)",
-                        (mips, tail_y, tail_x, tail_start, scale, wins, msizes)))
+                        (mips, tail_y, tail_x, tail_start, scale, wins, msizes), main))
 
     # multi-view plan: V·B rows against the B-image pyramid
     views = 3
     pv = retina.sample_unlabeled_params(gen, views * BATCH, CANVAS, cfg)
     errs.append(compare(f"multi-view plan (V={views}, V*B={views * BATCH})",
-                        retina.sampler_args(pyramid, pv, cfg)))
+                        retina.sampler_args(pyramid, pv, cfg), main))
+
+    # P not a multiple of 4: the scalar route, at the main path's size and tiny
+    for p in (899, 13):
+        cut = [t[..., :p].contiguous() for t in (rel_y, rel_x, scale)]
+        errs.append(compare(f"main-path plan cut to P={p}",
+                            (mips, cut[0], cut[1], start, cut[2], wins, msizes),
+                            ("scalar", "pairs")))
+    # a mip of odd side: 2-byte gathers, on both routes
+    for p, route in ((900, "vec16"), (13, "scalar")):
+        errs.append(compare(f"odd mip side (M=45, win=40, B={BATCH}, P={p})",
+                            odd_mip_plan(torch, gen, BATCH, p), (route, "taps")))
 
     # times at the main-path shapes, L2 flushed before each call
     flush_buf = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)
@@ -260,10 +297,11 @@ def check_glimpse_sample(torch, gs, retina):
 
     nbytes, flops = glimpse_bound(torch, mips, rel_y, rel_x, start, scale, wins)
     bound_ms, by = bound(nbytes, flops / PEAK_F32_FLOPS)
-    print(f"glimpse_sample times (B=128, L=4, P=900): kernel {kernel_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, library (4x F.grid_sample, approximate "
-          f"yardstick) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({nbytes / 1e6:.2f} MB at 3.35 TB/s; {flops / 1e6:.1f} MFLOP)")
+    print(f"glimpse_sample times (B=128, L=4, P=900) [{', '.join(main)}]: kernel "
+          f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library (4x F.grid_sample, "
+          f"approximate yardstick) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({nbytes / 1e6:.2f} MB at 3.35 TB/s; {flops / 1e6:.1f} MFLOP); "
+          f"{100 * bound_ms / kernel_ms:.1f}% of the bound (target 50%)")
     return {
         "name": "glimpse_sample",
         "route": "cuda",
@@ -281,8 +319,11 @@ def check_glimpse_sample(torch, gs, retina):
 def check_hat_sample(torch, gs, args):
     """Phase 2, B4: the one-level sampler at each level of the main path's
     plan (B=128, P=900), the edge clamp (window flush with the mip's end,
-    coordinates past both window edges) and P=13, against its plain
-    version; times summed over the four levels.
+    coordinates past both window edges), P=13 (the scalar route) and a mip
+    of odd side (2-byte gathers, both routes), against its plain version,
+    the same bits on a second call; times summed over the four levels, and
+    each level's time beside a launch's floor (a one-element ``zero_``)
+    plus its bytes at 3.35 TB/s.
 
     Tolerance as B1's (rtol=1e-2, atol=1e-1): both sides round the y
     weights to bf16, but from 1 - fy computed in two ways, which can land
@@ -292,18 +333,26 @@ def check_hat_sample(torch, gs, args):
     dev = torch.device("cuda")
     mips, rel_y, rel_x, start, _, wins, _ = args
     flush = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev).zero_
+    floor_ms = time_ms(torch.zeros(1, device=dev).zero_, torch, 50, flush)
     errs, totals = [], Counter()
 
-    def compare(label, a):
+    def compare(label, a, want):
         got = gs.hat_sample(*a)
+        plan = gs.hat_sample.plan
+        again = gs.hat_sample(*a)
         ref = gs.hat_sample_plain(*a)
         torch.cuda.synchronize()
-        ok = bool(torch.allclose(got, ref, rtol=RTOL, atol=ATOL))
+        same = torch.equal(got, again)
+        ok = bool(torch.allclose(got, ref, rtol=RTOL, atol=ATOL)) and same
         err, rel = normwise_err(got, ref)
-        print(f"hat_sample {label}: shape {tuple(got.shape)} max_abs_err {err:.4g} "
-              f"(normwise {rel:.3g}; rtol={RTOL}, atol={ATOL}) {'ok' if ok else 'MISMATCH'}")
+        route = (plan.route, plan.gather)
+        print(f"hat_sample {label} [{', '.join(route)}]: shape {tuple(got.shape)} max_abs_err "
+              f"{err:.4g} (normwise {rel:.3g}; rtol={RTOL}, atol={ATOL}), same bits on a "
+              f"second call {same} {'ok' if ok else 'MISMATCH'}")
         if not ok or not bool(torch.isfinite(got).all()):
             fail(f"hat_sample {label} disagrees with hat_sample_plain")
+        if route != want:
+            fail(f"hat_sample {label} takes the {route} route, expected {want}")
         errs.append(err)
 
     b = rel_y.shape[0]
@@ -313,13 +362,16 @@ def check_hat_sample(torch, gs, args):
         rel = torch.stack([rel_y[:, li], rel_x[:, li]], -1).contiguous()
         st = start[:, li].contiguous()
         a = (mip, rel, st, win)
-        compare(f"level {li} (M={m}, win={win}, B={b}, P={rel.shape[1]})", a)
+        compare(f"level {li} (M={m}, win={win}, B={b}, P={rel.shape[1]})", a,
+                ("vec16", "pairs"))
         edge = rel.clone()
         edge[:, :64] = win - 1.0
         edge[:, 64:96, 0] = -5.0
         edge[:, 96:128, 1] = win + 9.0
-        compare(f"level {li} edge clamp", (mip, edge, torch.full_like(st, m - win), win))
-        compare(f"level {li} P=13", (mip, rel[:, :13].contiguous(), st, win))
+        compare(f"level {li} edge clamp", (mip, edge, torch.full_like(st, m - win), win),
+                ("vec16", "pairs"))
+        compare(f"level {li} P=13", (mip, rel[:, :13].contiguous(), st, win),
+                ("scalar", "pairs"))
 
         kernel = time_ms(lambda: gs.hat_sample(*a), torch, 50, flush)
         plain = time_ms(lambda: gs.hat_sample_plain(*a), torch, 5, flush)
@@ -335,12 +387,20 @@ def check_hat_sample(torch, gs, args):
         bms, by = bound(nbytes, b * p * (4 * 3 * 2 + 16) / PEAK_F32_FLOPS)
         print(f"hat_sample times level {li}: kernel {kernel:.4f} ms, plain {plain:.4f} ms, "
               f"library (F.grid_sample, approximate yardstick) {library:.4f} ms, bound "
-              f"{bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB)")
+              f"{bms:.4f} ms ({by}: {nbytes / 1e6:.2f} MB), launch floor + bytes "
+              f"{floor_ms + bms:.4f} ms ({100 * (floor_ms + bms) / kernel:.1f}% of the kernel)")
         totals.update(kernel=kernel, plain=plain, library=library, bound=bms,
                       **{f"bound_{by}": bms})
+    for p, route in ((900, "vec16"), (13, "scalar")):
+        mip_, ry, rx, st, _, (win,), (m,) = odd_mip_plan(torch, torch.Generator(
+            device=dev).manual_seed(p), b, p)
+        compare(f"odd mip side (M={m}, win={win}, B={b}, P={p})",
+                (mip_[0], torch.stack([ry[:, 0], rx[:, 0]], -1).contiguous(),
+                 st[:, 0].contiguous(), win), (route, "taps"))
     print(f"hat_sample times, the four levels: kernel {totals['kernel']:.4f} ms, plain "
           f"{totals['plain']:.4f} ms, library {totals['library']:.4f} ms, bound "
-          f"{totals['bound']:.4f} ms")
+          f"{totals['bound']:.4f} ms, four launch floors + bytes "
+          f"{4 * floor_ms + totals['bound']:.4f} ms (floor {floor_ms:.4f} ms a launch)")
     return {
         "name": "hat_sample",
         "route": "cuda",

@@ -12,10 +12,14 @@ result is multiplied by the per-point ``scale`` (grid-mask keep ×
 in-bounds), and it comes back channel-major ``(B, 3L, P)`` float32.
 
 On a CUDA tensor :func:`glimpse_sample` launches the kernel of
-``csrc/glimpse_sample.cu`` (one thread per output point, at most 2×2 bf16
-taps read straight from the mip, f32 accumulation, all levels in one
-launch) or raises; on a CPU tensor it runs the plain version. There is no
-fallback from the kernel to the plain version.
+``csrc/glimpse_sample.cu`` (one block per chunk of a window, four points a
+thread, at most 2×2 bf16 taps read straight from the mip, f32
+accumulation, all levels in one launch) or raises; on a CPU tensor it runs
+the plain version. There is no fallback from the kernel to the plain
+version. The launch plan, :func:`glimpse_sample_plan`, is pure Python and
+picks the kernel's routes from the shapes: 16-byte coordinate loads and
+output stores where ``P % 4 == 0`` (else 4-byte ones), pixel pairs read as
+32-bit words where every mip side is even (else 2-byte taps).
 
 :func:`hat_sample` is the one-level form, the counterpart of the TPU kernel
 ``hat_sample``: ``(B, P, 2)`` window-relative coordinates in, ``(B, P, 3)``
@@ -27,13 +31,78 @@ kernel is the second entry point of ``csrc/glimpse_sample.cu``.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
 from multimodal_active_ai_tpu_torch.ops import cuda_build
 
-MAX_LEVELS = 8  # GS_MAX_LEVELS in csrc/glimpse_sample.cu
+MAX_LEVELS = 8          # GS_MAX_LEVELS in csrc/glimpse_sample.cu
+POINTS_PER_THREAD = 4   # GS_K
+MAX_THREADS = 64        # GS_MAX_THREADS
+MAX_CHUNKS = 65535      # gridDim.z
+
+
+class SamplerPlan(NamedTuple):
+    """Launch plan of B1 or B4 for ``b`` plan rows, ``levels`` levels and
+    ``points`` points: a grid of ``(b, levels, chunks)`` blocks of
+    ``threads`` threads; block ``(b, l, z)`` samples chunk ``z`` of window
+    ``(b, l)``, ``points_per_thread · threads`` points, and each thread
+    ``points_per_thread`` of them. Route ``"vec16"`` (``points`` a multiple
+    of 4, rows 16-byte aligned): a thread's points are consecutive, read and
+    written with 16-byte loads and stores. Route ``"scalar"``: they lie
+    ``threads`` apart, so neighbouring threads touch neighbouring words.
+    Gathers ``"pairs"`` (every mip side even, mips 4-byte aligned): a tap
+    row's two pixels come in as 32-bit words; ``"taps"``: as 2-byte
+    loads."""
+
+    route: str
+    gather: str
+    points: int
+    points_per_thread: int
+    threads: int
+    chunks: int
+    grid: tuple[int, int, int]
+
+    def thread_points(self, chunk: int, t: int) -> list[int]:
+        """The points thread ``t`` of a chunk-``chunk`` block samples, as
+        the kernel enumerates them."""
+        k = self.points_per_thread
+        first = chunk * k * self.threads
+        if self.route == "vec16":
+            ps = [first + k * t + i for i in range(k)]
+        else:
+            ps = [first + t + i * self.threads for i in range(k)]
+        return [p for p in ps if p < self.points]
+
+
+def _plan(b: int, levels: int, p: int, aligned: bool, pairs: bool) -> SamplerPlan:
+    if b < 1 or levels < 1 or p < 1:
+        raise ValueError(f"glimpse sampler: empty plan (B={b}, L={levels}, P={p})")
+    k = POINTS_PER_THREAD
+    route = "vec16" if aligned and p % 4 == 0 else "scalar"
+    threads = min(MAX_THREADS, -(-p // (32 * k)) * 32)     # whole warps
+    chunks = -(-p // (k * threads))
+    if chunks > MAX_CHUNKS:
+        raise ValueError(f"glimpse sampler: {p} points need {chunks} > {MAX_CHUNKS} chunks")
+    return SamplerPlan(route, "pairs" if pairs else "taps", p, k, threads, chunks,
+                       (b, levels, chunks))
+
+
+def glimpse_sample_plan(b: int, levels: int, p: int, aligned: bool = True,
+                        pairs: bool = True) -> SamplerPlan:
+    """The B1 launch for a ``(B, L, P)`` plan; ``aligned`` says whether
+    ``rel_y``, ``rel_x`` and ``scale`` start on a 16-byte boundary,
+    ``pairs`` whether every mip has an even side and a 4-byte-aligned
+    start. Pure Python, so CPU tests hold it; the kernel checks it."""
+    return _plan(b, levels, p, aligned, pairs)
+
+
+def hat_sample_plan(b: int, p: int, aligned: bool = True, pairs: bool = True) -> SamplerPlan:
+    """The B4 launch for ``(B, P, 2)`` coordinates, one level; ``aligned``
+    says whether ``rel`` starts on a 16-byte boundary, ``pairs`` as for
+    :func:`glimpse_sample_plan`."""
+    return _plan(b, 1, p, aligned, pairs)
 
 
 def glimpse_sample_plain(mips: Sequence[torch.Tensor], rel_y: torch.Tensor,
@@ -93,9 +162,10 @@ def glimpse_sample(mips: Sequence[torch.Tensor], rel_y: torch.Tensor,
     """Sample all pyramid levels in one call; arguments and result as in
     :func:`glimpse_sample_plain`.
 
-    CUDA tensors launch the hand-written kernel on the current stream and
-    add one to ``glimpse_sample.launches``; CPU tensors take the plain
-    version. ``start`` must be int32 and every tensor contiguous on CUDA.
+    CUDA tensors launch the hand-written kernel on the current stream, add
+    one to ``glimpse_sample.launches`` and leave the launch's plan in
+    ``glimpse_sample.plan``; CPU tensors take the plain version. ``start``
+    must be int32 and every tensor contiguous on CUDA.
     """
     if rel_y.device.type == "cpu":
         return glimpse_sample_plain(mips, rel_y, rel_x, start, scale, wins,
@@ -118,6 +188,8 @@ def glimpse_sample(mips: Sequence[torch.Tensor], rel_y: torch.Tensor,
 
     lib = _library()
     out = torch.empty((b, 3 * levels, p), dtype=torch.float32, device=dev)
+    plan = glimpse_sample_plan(b, levels, p, _aligned16(rel_y, rel_x, scale, out),
+                               all(_pairs_ok(m) for m in mips))
     ptrs = (ctypes.c_void_p * levels)(*[m.data_ptr() for m in mips])
     msz = (ctypes.c_int * levels)(*[m.shape[1] for m in mips])
     wns = (ctypes.c_int * levels)(*[int(w) for w in wins])
@@ -125,15 +197,19 @@ def glimpse_sample(mips: Sequence[torch.Tensor], rel_y: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.glimpse_sample_launch(
             ptrs, msz, wns, levels, b, mips[0].shape[0], p,
+            int(plan.route == "vec16"), int(plan.gather == "pairs"), plan.threads,
+            plan.chunks,
             rel_y.data_ptr(), rel_x.data_ptr(), start.data_ptr(),
             scale.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"glimpse_sample kernel launch failed: CUDA error {err}")
     glimpse_sample.launches += 1
+    glimpse_sample.plan = plan
     return out
 
 
 glimpse_sample.launches = 0
+glimpse_sample.plan = None
 
 
 def hat_sample_plain(mip: torch.Tensor, rel: torch.Tensor, start: torch.Tensor,
@@ -158,9 +234,10 @@ def hat_sample(mip: torch.Tensor, rel: torch.Tensor, start: torch.Tensor,
                win: int) -> torch.Tensor:
     """One level; arguments and result as in :func:`hat_sample_plain`.
 
-    CUDA tensors launch the ``hat_sample`` kernel on the current stream and
-    add one to ``hat_sample.launches``; CPU tensors take the plain version.
-    On CUDA ``start`` must be int32 and every tensor contiguous.
+    CUDA tensors launch the ``hat_sample`` kernel on the current stream, add
+    one to ``hat_sample.launches`` and leave the plan in ``hat_sample.plan``;
+    CPU tensors take the plain version. On CUDA ``start`` must be int32 and
+    every tensor contiguous.
     """
     if rel.device.type == "cpu":
         return hat_sample_plain(mip, rel, start, win)
@@ -174,18 +251,23 @@ def hat_sample(mip: torch.Tensor, rel: torch.Tensor, start: torch.Tensor,
     _check_tensor("mip", mip, torch.bfloat16, tuple(mip.shape), dev, "hat_sample")
     lib = _library()
     out = torch.empty((b, p, 3), dtype=torch.float32, device=dev)
+    plan = hat_sample_plan(b, p, _aligned16(rel, out), _pairs_ok(mip))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.hat_sample_launch(mip.data_ptr(), b, mip.shape[1], int(win), p,
+                                    int(plan.route == "vec16"), int(plan.gather == "pairs"),
+                                    plan.threads, plan.chunks,
                                     rel.data_ptr(), start.data_ptr(),
                                     out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"hat_sample kernel launch failed: CUDA error {err}")
     hat_sample.launches += 1
+    hat_sample.plan = plan
     return out
 
 
 hat_sample.launches = 0
+hat_sample.plan = None
 
 
 def _library() -> ctypes.CDLL:
@@ -194,14 +276,23 @@ def _library() -> ctypes.CDLL:
     fn = lib.glimpse_sample_launch
     if not fn.argtypes:
         fn.argtypes = [ctypes.POINTER(vp), ctypes.POINTER(ci),
-                       ctypes.POINTER(ci), ci, ci, ci, ci,
+                       ctypes.POINTER(ci), ci, ci, ci, ci, ci, ci, ci, ci,
                        vp, vp, vp, vp, vp, vp]
         fn.restype = ci
     fn = lib.hat_sample_launch
     if not fn.argtypes:
-        fn.argtypes = [vp, ci, ci, ci, ci, vp, vp, vp, vp]
+        fn.argtypes = [vp, ci, ci, ci, ci, ci, ci, ci, ci, vp, vp, vp, vp]
         fn.restype = ci
     return lib
+
+
+def _aligned16(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _pairs_ok(mip: torch.Tensor) -> bool:
+    """Whether the kernel may read ``mip``'s pixel pairs as 32-bit words."""
+    return mip.shape[1] % 2 == 0 and mip.data_ptr() % 4 == 0
 
 
 def _check_hat_geometry(mip, rel, start, win):

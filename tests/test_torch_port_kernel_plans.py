@@ -1,17 +1,19 @@
-"""The launch plans of the port's statistic kernels, held on the CPU.
+"""The launch plans of the port's kernels, held on the CPU.
 
-``conv1x1_plan`` (B3, ``ops/conv1x1_stats.py``) and ``stat_sums_plan``
-(B2, ``ops/stat_sums.py``) are pure Python: they choose the tiles, the ring,
-the grid and the static schedule that the CUDA kernels then check and
-follow. The kernels themselves run only on the card (``chip_smoke.py``);
-here the plans are held at the shapes the main path gives them, on an
-H100's 132 SMs.
+``conv1x1_plan`` (B3, ``ops/conv1x1_stats.py``), ``stat_sums_plan`` (B2,
+``ops/stat_sums.py``), ``glimpse_sample_plan`` and ``hat_sample_plan`` (B1
+and B4, ``ops/glimpse_sample.py``) are pure Python: they choose the tiles,
+the ring, the grid, the route and the static schedule that the CUDA
+kernels then check and follow. The kernels themselves run only on the card
+(``chip_smoke.py``); here the plans are held at the shapes the main path
+gives them, on an H100's 132 SMs.
 """
 
 import pytest
 
 from chip_smoke import resnet50_fused_shapes
 from multimodal_active_ai_tpu_torch.ops import conv1x1_stats as cs
+from multimodal_active_ai_tpu_torch.ops import glimpse_sample as gs
 from multimodal_active_ai_tpu_torch.ops import stat_sums as ss
 
 SMS = 132
@@ -103,3 +105,68 @@ def test_stat_sums_plan_covers_rows_once_in_one_wave(nc, element_size, vec):
         for r in rows:
             covered[r] += 1
     assert covered == [1] * n
+
+
+# B1: the main path's plan (B=128, L=4, P=900), a 3-view plan, P=899 (the
+# scalar route at the main path's size), P=13 and P=1; B4: one level of each
+SAMPLER_PLANS = [(128, 4, 900), (384, 4, 900), (128, 4, 899), (3, 2, 13), (2, 1, 1),
+                 (1, 1, 1500)]
+
+
+def _covered(plan):
+    """How often each point of one window is sampled, over the blocks of one
+    ``(b, l)`` and their threads."""
+    counts = [0] * plan.points
+    for chunk in range(plan.chunks):
+        for t in range(plan.threads):
+            for p in plan.thread_points(chunk, t):
+                counts[p] += 1
+    return counts
+
+
+@pytest.mark.parametrize("blp", SAMPLER_PLANS, ids=str)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_glimpse_sample_plan_covers_each_point_once(blp, aligned):
+    b, levels, p = blp
+    plan = gs.glimpse_sample_plan(b, levels, p, aligned)
+    assert plan.grid == (b, levels, plan.chunks)          # one block per window chunk
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= gs.MAX_THREADS
+    assert plan.points_per_thread == gs.POINTS_PER_THREAD == 4
+    per_block = plan.points_per_thread * plan.threads
+    assert plan.chunks * per_block >= p > (plan.chunks - 1) * per_block   # no chunk empty
+    assert _covered(plan) == [1] * p                      # each (b, l, p) exactly once
+    assert plan.route == ("vec16" if aligned and p % 4 == 0 else "scalar")
+
+
+@pytest.mark.parametrize("bp", [(b, p) for b, _, p in SAMPLER_PLANS], ids=str)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_hat_sample_plan_covers_each_point_once(bp, aligned):
+    b, p = bp
+    plan = gs.hat_sample_plan(b, p, aligned)
+    assert plan.grid == (b, 1, plan.chunks)
+    assert _covered(plan) == [1] * p
+    assert plan.route == ("vec16" if aligned and p % 4 == 0 else "scalar")
+
+
+def test_glimpse_sample_main_path_plan():
+    """B=128, L=4, P=900: four blocks of 64 threads a window, 2,048 blocks
+    in all, each thread four consecutive points read and written 16 bytes at
+    a time; the last block of a window has 33 busy threads."""
+    plan = gs.glimpse_sample_plan(128, 4, 900)
+    assert (plan.route, plan.gather) == ("vec16", "pairs")
+    assert plan.threads == 64 and plan.chunks == 4 and plan.grid == (128, 4, 4)
+    for chunk in range(4):
+        busy = [t for t in range(64) if plan.thread_points(chunk, t)]
+        assert len(busy) == (64 if chunk < 3 else 33)
+        assert all(plan.thread_points(chunk, t) == [256 * chunk + 4 * t + i for i in range(4)]
+                   for t in busy)
+    scalar = gs.glimpse_sample_plan(128, 4, 900, aligned=False)
+    assert scalar.thread_points(0, 5) == [5, 5 + scalar.threads, 5 + 2 * scalar.threads,
+                                          5 + 3 * scalar.threads]
+
+
+def test_sampler_plan_rejects_empty_plans():
+    with pytest.raises(ValueError, match="empty"):
+        gs.glimpse_sample_plan(0, 4, 900)
+    with pytest.raises(ValueError, match="empty"):
+        gs.hat_sample_plan(2, 0)

@@ -19,7 +19,9 @@ result line):
    version, the nearest library call and the bound (bytes or operations
    over the card's peak rate), printing each shape's share of its bound
    and B1's, B3's and B4's routes (fatal if a main-path shape leaves its
-   route). Then hold
+   route). B1 is also held at the labeled plan of the probe and DETR
+   paths (F=2: F*B = 256 rows over the B = 128 pyramid) and timed there.
+   Then hold
    small float32 train steps on the card against the same steps on the
    CPU: ResNet10, and ResNet-50 with ``norm_kind='bn_fused'`` and
    ``stat_fusion='pallas'``; and that fused ResNet-50 at b=1, whose 1x1
@@ -35,6 +37,15 @@ result line):
    ``norm_kind='bn_fused'`` + ``stat_fusion='pallas'`` model (B2 187 and B3
    396 launches a step), each with its counters set to 0 just before and
    read just after; median step times of all three configurations.
+3c. The linear-probe driver, ``representation_evaluation.main``, from the
+   phase-3 SimCLR checkpoint (ResNet-50 encoder frozen in eval mode, b=128,
+   F=2, canvas 640, bf16, 3 train steps and validation), then its resume:
+   B1 launched once a train and an eval step, B2, B3 and B4 never.
+3d. The same for the DETR driver, ``detr_image_classification.main``, with
+   its default model (6 + 6 layers, hidden 256, 8 heads, FFN 2048, 10
+   queries, 1000 classes) on that ResNet-50 backbone; its frozen stem and
+   layer1 unchanged and its ``aux_logits`` of the right shape. Median probe
+   and DETR train steps, with peak memory.
 4. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX. It exits non-zero without CUDA, and when the
@@ -43,6 +54,7 @@ port package is not beside it.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -63,6 +75,7 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BF16_TENSOR_FLOPS = 989e12
 
 ARCH, BATCH, FIXATIONS, CANVAS, EXAMPLES = "ResNet50", 128, 10, 640, 384
+PROBE_FIXATIONS = 2     # -f of the probe and DETR paths
 RTOL, ATOL = 1e-2, 1e-1
 
 
@@ -268,6 +281,14 @@ def check_glimpse_sample(torch, gs, retina):
         errs.append(compare(f"odd mip side (M=45, win=40, B={BATCH}, P={p})",
                             odd_mip_plan(torch, gen, BATCH, p), (route, "taps")))
 
+    # the labeled plan of the probe and DETR paths: F*B rows (no rotation,
+    # no crop, a random fixation) over the B-image pyramid
+    lab_cfg = retina.RetinaConfig(canvas_size=CANVAS)
+    lab_params = retina.sample_labeled_params(gen, PROBE_FIXATIONS * BATCH, CANVAS)
+    lab_args = retina.sampler_args(pyramid, lab_params, lab_cfg)
+    errs.append(compare(f"labeled plan (F={PROBE_FIXATIONS}, F*B={PROBE_FIXATIONS * BATCH})",
+                        lab_args, main))
+
     # times at the main-path shapes, L2 flushed before each call
     flush_buf = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)
     flush = flush_buf.zero_
@@ -302,6 +323,14 @@ def check_glimpse_sample(torch, gs, retina):
           f"approximate yardstick) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({nbytes / 1e6:.2f} MB at 3.35 TB/s; {flops / 1e6:.1f} MFLOP); "
           f"{100 * bound_ms / kernel_ms:.1f}% of the bound (target 50%)")
+    lab_ms = time_ms(lambda: gs.glimpse_sample(*lab_args), torch, 50, flush)
+    lab_plain_ms = time_ms(lambda: gs.glimpse_sample_plain(*lab_args), torch, 5, flush)
+    lab_bytes, lab_flops = glimpse_bound(torch, *lab_args[:6])
+    lab_bound_ms, lab_by = bound(lab_bytes, lab_flops / PEAK_F32_FLOPS)
+    print(f"glimpse_sample times, labeled plan (F*B={PROBE_FIXATIONS * BATCH} over B={BATCH}, "
+          f"L=4, P=900) [{', '.join(main)}]: kernel {lab_ms:.4f} ms, plain {lab_plain_ms:.4f} "
+          f"ms, bound {lab_bound_ms:.4f} ms ({lab_by}: {lab_bytes / 1e6:.2f} MB); "
+          f"{100 * lab_bound_ms / lab_ms:.1f}% of the bound")
     return {
         "name": "glimpse_sample",
         "route": "cuda",
@@ -733,32 +762,42 @@ def reset_counts(kernels) -> None:
         k.launches = 0
 
 
+def median_step_ms(torch, step, label, device_name, fixations, peak_gib=None,
+                   steps=3) -> float:
+    """Median host time of ``steps`` synchronised calls of ``step()``
+    (bf16, ResNet-50 b=128, canvas 640), printed with img/s."""
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    med = sorted(times)[steps // 2]
+    mem = "" if peak_gib is None else f"; peak memory {peak_gib:.2f} GiB"
+    print(f"train step {label} ({ARCH}, b={BATCH}, F={fixations}, canvas {CANVAS}, bf16): "
+          f"median {med:.1f} ms over {steps} steps {[round(t, 1) for t in times]}, "
+          f"{BATCH / med * 1e3:.1f} img/s{mem} [{device_name}]")
+    return med
+
+
 def step_times(torch, state, label, device_name, peak_gib=None) -> float:
-    """Median host time of 3 synchronised train steps on ``state`` (bf16,
-    ResNet-50 b=128 F=10 canvas 640); fails on non-finite losses."""
+    """Median host time of 3 synchronised SimCLR train steps on ``state``
+    (F=10); fails on non-finite losses."""
     from multimodal_active_ai_tpu_torch.ops import retina
     from multimodal_active_ai_tpu_torch.train import simclr_train
-    cfg = retina.RetinaConfig(canvas_size=CANVAS)
-    step = simclr_train.make_train_step(cfg, FIXATIONS, 0.05)
+    step = simclr_train.make_train_step(retina.RetinaConfig(canvas_size=CANVAS), FIXATIONS, 0.05)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     images = torch.randint(0, 256, (BATCH, CANVAS, CANVAS, 3), generator=gen,
                            dtype=torch.uint8, device=dev)
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+
+    def checked():
         losses = step(state, images, gen)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
         if not bool(torch.isfinite(losses).all()):
             fail(f"non-finite losses {losses.tolist()}")
-    times.sort()
-    mem = "" if peak_gib is None else f"; peak memory {peak_gib:.2f} GiB"
-    print(f"train step {label} ({ARCH}, b={BATCH}, F={FIXATIONS}, canvas {CANVAS}, "
-          f"bf16): median {times[1]:.1f} ms over 3 steps {[round(t, 1) for t in times]}, "
-          f"{BATCH / times[1] * 1e3:.1f} img/s{mem} [{device_name}]")
-    return times[1]
+
+    return median_step_ms(torch, checked, label, device_name, FIXATIONS, peak_gib)
 
 
 def drive_and_check(torch, driver, ckpt_mod, argv, ckdir, label):
@@ -783,49 +822,174 @@ def drive_and_check(torch, driver, ckpt_mod, argv, ckdir, label):
     return state, payload, ck, wall
 
 
-def run_main_path(torch, counters, driver, ckpt_mod, device_name):
-    """Phase 3: the SimCLR driver at full ResNet-50 width, then a resume."""
+def run_main_path(torch, counters, driver, ckpt_mod, device_name, ckdir):
+    """Phase 3: the SimCLR driver at full ResNet-50 width, then a resume.
+    Its checkpoint stays in ``ckdir`` for the probe and DETR phases."""
     gs = counters["glimpse_sample"]
-    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    try:
-        argv = ["--dataset", "synthetic", "--arch", ARCH, "-b", str(BATCH),
-                "-f", str(FIXATIONS), "--canvas-size", str(CANVAS),
-                "--epochs", "1", "-t", "--num-examples", str(EXAMPLES),
-                "--checkpoint-dir", ckdir, "-p", "1"]
-        train_steps, eval_steps = TRAIN_STEPS, EVAL_STEPS
-        expected = train_steps * (1 + FIXATIONS) + 2 * eval_steps
+    argv = ["--dataset", "synthetic", "--arch", ARCH, "-b", str(BATCH),
+            "-f", str(FIXATIONS), "--canvas-size", str(CANVAS),
+            "--epochs", "1", "-t", "--num-examples", str(EXAMPLES),
+            "--checkpoint-dir", ckdir, "-p", "1"]
+    train_steps, eval_steps = TRAIN_STEPS, EVAL_STEPS
+    expected = train_steps * (1 + FIXATIONS) + 2 * eval_steps
 
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts(counters.values())
-        state, payload, ck, wall = drive_and_check(torch, driver, ckpt_mod, argv, ckdir, "")
-        launches = gs.launches
-        others = {k: c.launches for k, c in counters.items() if k != "glimpse_sample"}
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        print(f"main path: {train_steps} train steps x (1+{FIXATIONS}) views + "
-              f"{eval_steps} eval step(s); glimpse_sample launches {launches} "
-              f"(expected {expected}); other kernels {others} (off this path); "
-              f"wall {wall:.2f} s incl. first-call set-up")
-        if launches != expected:
-            fail(f"glimpse_sample launched {launches} times, expected {expected}")
-        if any(others.values()):
-            fail(f"kernels off the bn path launched: {others}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters.values())
+    state, payload, ck, wall = drive_and_check(torch, driver, ckpt_mod, argv, ckdir, "")
+    launches = gs.launches
+    others = {k: c.launches for k, c in counters.items() if k != "glimpse_sample"}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"main path: {train_steps} train steps x (1+{FIXATIONS}) views + "
+          f"{eval_steps} eval step(s); glimpse_sample launches {launches} "
+          f"(expected {expected}); other kernels {others} (off this path); "
+          f"wall {wall:.2f} s incl. first-call set-up")
+    if launches != expected:
+        fail(f"glimpse_sample launched {launches} times, expected {expected}")
+    if any(others.values()):
+        fail(f"kernels off the bn path launched: {others}")
 
-        resumed = driver.main(argv + ["--resume", ck])
-        want = payload["state_dict"]
-        got = resumed.model.state_dict()
-        same = all(torch.equal(got[k].cpu(), want[k].cpu()) for k in want)
-        if resumed.step != payload["step"] or not same:
-            fail("resume did not restore the checkpoint")
-        print(f"resume: restored step {resumed.step} and all "
-              f"{len(want)} state_dict tensors")
+    resumed = driver.main(argv + ["--resume", ck])
+    want = payload["state_dict"]
+    got = resumed.model.state_dict()
+    same = all(torch.equal(got[k].cpu(), want[k].cpu()) for k in want)
+    if resumed.step != payload["step"] or not same:
+        fail("resume did not restore the checkpoint")
+    print(f"resume: restored step {resumed.step} and all "
+          f"{len(want)} state_dict tensors")
 
-        # steady-state step time on the trained state (host clock around a
-        # synchronised step; the launch count above is already read)
-        step_ms = step_times(torch, state, "bn", device_name, peak_gib)
-        return launches, step_ms
-    finally:
-        shutil.rmtree(ckdir, ignore_errors=True)
+    # steady-state step time on the trained state (host clock around a
+    # synchronised step; the launch count above is already read)
+    step_ms = step_times(torch, state, "bn", device_name, peak_gib)
+    return launches, step_ms, ck
+
+
+def drive_downstream(torch, counters, driver, argv, ckdir, ckpt_name, label):
+    """One downstream driver run (train steps + validation from the SimCLR
+    checkpoint), its launch counts (B1 once a train and an eval step, no
+    B2, B3 or B4) and its resume, checked. Returns the state, the
+    checkpoint payload, the B1 launches and the peak memory in GiB."""
+    from multimodal_active_ai_tpu_torch.utils import checkpoint
+    want = {"glimpse_sample": TRAIN_STEPS + EVAL_STEPS, "stat_sums": 0,
+            "conv1x1_stats": 0, "hat_sample": 0}
+    gc.collect()
+    torch.cuda.synchronize()
+    held_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters.values())
+    t0 = time.perf_counter()
+    state = driver.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: c.launches for k, c in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{label} path: {TRAIN_STEPS} train + {EVAL_STEPS} eval steps; launches {got} "
+          f"(expected {want}); wall {wall:.2f} s incl. first-call set-up; peak memory "
+          f"{peak_gib:.2f} GiB, {held_gib:.2f} GiB of it held before the run")
+    if got != want:
+        fail(f"{label} launches {got}, expected {want}")
+    if state.step != TRAIN_STEPS:
+        fail(f"{label} took {state.step} updates, expected {TRAIN_STEPS}")
+    ck = os.path.join(ckdir, ckpt_name)
+    if not os.path.isfile(ck):
+        fail(f"{label} wrote no {ckpt_name}")
+    payload = checkpoint.load_checkpoint(ck, "cuda")
+    if sorted(payload) != ["best_prec1", "epoch", "optimizer", "state_dict"]:
+        fail(f"{label} checkpoint keys {sorted(payload)}")
+    if not all(bool(torch.isfinite(v).all()) for v in payload["state_dict"].values()):
+        fail(f"{label} checkpoint holds non-finite weights")
+    resumed = driver.main(argv + ["--resume", ck])
+    sd, opt = resumed.model.state_dict(), resumed.optimizer.state_dict()["state"]
+    same = all(torch.equal(sd[k], v) for k, v in payload["state_dict"].items()) and all(
+        torch.equal(opt[i][k], v) for i, st in payload["optimizer"]["state"].items()
+        for k, v in st.items())
+    if resumed.step != TRAIN_STEPS or not same:
+        fail(f"{label} resume did not restore the checkpoint")
+    print(f"resume {label}: restored step {resumed.step}, all {len(sd)} state_dict tensors "
+          f"and the optimizer state of {len(opt)} parameters")
+    return state, payload, got["glimpse_sample"], peak_gib
+
+
+def run_probe_path(torch, counters, simclr_ck, workdir, device_name):
+    """Phase 3c: the linear-probe driver from the phase-3 SimCLR checkpoint
+    (ResNet-50 encoder frozen in eval mode, b=128, F=2, canvas 640, bf16),
+    its resume, and the median probe train step."""
+    from multimodal_active_ai_tpu_torch import representation_evaluation as probe_driver
+    from multimodal_active_ai_tpu_torch.models.simclr import SimCLRModule
+    from multimodal_active_ai_tpu_torch.ops import retina
+    from multimodal_active_ai_tpu_torch.train import eval_probe
+
+    ckdir = os.path.join(workdir, "probe")
+    argv = [simclr_ck, "--dataset", "synthetic", "--arch", ARCH, "-b", str(BATCH),
+            "-f", str(PROBE_FIXATIONS), "--canvas-size", str(CANVAS), "--epochs", "1", "-t",
+            "--num-examples", str(EXAMPLES), "--checkpoint-dir", ckdir, "-p", "1"]
+    state, _, launches, peak = drive_downstream(
+        torch, counters, probe_driver, argv, ckdir, "classifier_checkpoint.pth.tar", "probe")
+    dev = torch.device("cuda")
+    encoder = SimCLRModule(ARCH, dtype=torch.bfloat16).to(dev).to(memory_format=torch.channels_last)
+    if not probe_driver.load_pretrained_encoder(encoder, simclr_ck, dev):
+        fail("the probe's encoder did not load the SimCLR checkpoint")
+    step = eval_probe.make_probe_train_step(retina.RetinaConfig(canvas_size=CANVAS),
+                                            PROBE_FIXATIONS)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    images = torch.randint(0, 256, (BATCH, CANVAS, CANVAS, 3), generator=gen,
+                           dtype=torch.uint8, device=dev)
+    labels = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
+    ms = median_step_ms(torch, lambda: step(state, encoder, images, labels, gen), "probe",
+                        device_name, PROBE_FIXATIONS, peak, steps=9)
+    return launches, ms
+
+
+def run_detr_path(torch, counters, simclr_ck, workdir, device_name):
+    """Phase 3d: the DETR driver with its default model (6 + 6 layers,
+    hidden 256, 8 heads, FFN 2048, 10 queries, 1000 classes) on the
+    ResNet-50 backbone from the phase-3 SimCLR checkpoint, its resume, the
+    frozen stem and layer1 unchanged, ``aux_logits`` of shape (5, B, 10,
+    1000), and the median DETR train step."""
+    from multimodal_active_ai_tpu_torch import detr_image_classification as detr_driver
+    from multimodal_active_ai_tpu_torch.objectives.set_criterion import SetCriterion
+    from multimodal_active_ai_tpu_torch.ops import retina
+    from multimodal_active_ai_tpu_torch.train import detr_train
+    from multimodal_active_ai_tpu_torch.utils import checkpoint
+
+    ckdir = os.path.join(workdir, "detr")
+    argv = [simclr_ck, "--dataset", "synthetic", "--backbone", ARCH, "-b", str(BATCH),
+            "-f", str(PROBE_FIXATIONS), "--canvas-size", str(CANVAS), "--epochs", "1", "-t",
+            "--num-examples", str(EXAMPLES), "--checkpoint-dir", ckdir, "-p", "1"]
+    state, payload, launches, peak = drive_downstream(
+        torch, counters, detr_driver, argv, ckdir, "detr_classifier_checkpoint.pth.tar", "DETR")
+    model = state.model
+    simclr = checkpoint.load_checkpoint(simclr_ck, "cuda")["state_dict"]
+    labels = detr_train.detr_param_labels(model)
+    frozen = [n for n, lab in labels.items() if lab == "frozen"]
+    body = "backbone.0.body."
+    if not frozen or not all(torch.equal(payload["state_dict"][n], simclr["f." + n[len(body):]])
+                             for n in frozen):
+        fail("a frozen DETR parameter changed")
+    moved = [n for n, lab in labels.items() if lab == "backbone"
+             and not torch.equal(payload["state_dict"][n], simclr["f." + n[len(body):]])]
+    print(f"DETR: {len(frozen)} frozen parameters unchanged, {len(moved)} of "
+          f"{sum(lab == 'backbone' for lab in labels.values())} backbone parameters moved")
+
+    cfg = retina.RetinaConfig(canvas_size=CANVAS)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    images = torch.randint(0, 256, (BATCH, CANVAS, CANVAS, 3), generator=gen,
+                           dtype=torch.uint8, device=dev)
+    targets = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
+    glimpses, sacc, mask = detr_train.collect_glimpse_sequence(images, cfg, PROBE_FIXATIONS, gen)
+    model.eval()
+    with torch.no_grad():
+        out = model(glimpses, sacc, mask)
+    want = (5, BATCH, 10, 1000)
+    if tuple(out["aux_logits"].shape) != want or not bool(torch.isfinite(out["aux_logits"]).all()):
+        fail(f"aux_logits {tuple(out['aux_logits'].shape)}, expected finite {want}")
+    print(f"DETR forward: pred_logits {tuple(out['pred_logits'].shape)}, aux_logits "
+          f"{tuple(out['aux_logits'].shape)}, finite")
+    step = detr_train.make_detr_train_step(SetCriterion(10, 1000), cfg, PROBE_FIXATIONS, 0.1)
+    ms = median_step_ms(torch, lambda: step(state, images, targets, gen), "DETR", device_name,
+                        PROBE_FIXATIONS, peak, steps=9)
+    return launches, ms
 
 
 def run_stat_fusion_paths(torch, counters, driver, ckpt_mod, device_name):
@@ -945,16 +1109,29 @@ def main() -> int:
                 "conv1x1_stats": cs.conv1x1_stats, "hat_sample": gs.hat_sample}
     check_odd_rows(torch, counters)
 
-    # phase 3: the main path (norm 'bn'); 3b: the fused-statistics paths
-    rows["glimpse_sample"]["launches"], bn_ms = run_main_path(
-        torch, counters, driver, ckpt_mod, device_name)
-    fused = run_stat_fusion_paths(torch, counters, driver, ckpt_mod, device_name)
+    # phase 3: the main path (norm 'bn'); 3b: the fused-statistics paths;
+    # 3c and 3d: the probe and DETR drivers from the phase-3 checkpoint
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        rows["glimpse_sample"]["launches"], bn_ms, simclr_ck = run_main_path(
+            torch, counters, driver, ckpt_mod, device_name, workdir)
+        fused = run_stat_fusion_paths(torch, counters, driver, ckpt_mod, device_name)
+        probe_launches, probe_ms = run_probe_path(torch, counters, simclr_ck, workdir,
+                                                  device_name)
+        detr_launches, detr_ms = run_detr_path(torch, counters, simclr_ck, workdir,
+                                               device_name)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     rows["conv1x1_stats"]["launches"] = fused["conv1x1_stats"]
     rows["stat_sums"]["launches"] = fused["stat_sums"]
     rows["hat_sample"]["launches"] = fused["hat_sample"]   # no production caller
     print(f"median train step ({ARCH}, b={BATCH}, F={FIXATIONS}, canvas {CANVAS}, bf16): "
           f"bn {bn_ms:.1f} ms, --stat-fusion pallas {fused['pallas_ms']:.1f} ms, "
           f"bn_fused + pallas {fused['bn_fused_ms']:.1f} ms [{device_name}]")
+    print(f"median train step ({ARCH}, b={BATCH}, F={PROBE_FIXATIONS}, canvas {CANVAS}, bf16): "
+          f"probe {probe_ms:.1f} ms ({BATCH / probe_ms * 1e3:.1f} img/s), DETR {detr_ms:.1f} "
+          f"ms ({BATCH / detr_ms * 1e3:.1f} img/s); glimpse_sample launches probe "
+          f"{probe_launches}, DETR {detr_launches} [{device_name}]")
 
     # phase 4: results
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

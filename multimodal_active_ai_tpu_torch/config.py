@@ -1,12 +1,14 @@
-"""SimCLR driver config and the argparse shim that builds its CLI.
+"""Driver configs and the argparse shim that builds their CLIs.
 
 The port's own copy of ``multimodal_active_ai_tpu/config.py``
-(``ContrastiveConfig``, ``add_args_from_dataclass``, ``parse_into``): the
-same flag names and defaults, so a JAX command line runs here unchanged,
-plus ``--device``. Flags whose feature has not been ported raise
-``NotImplementedError`` in ``contrastive_learning``, naming the ROADMAP item. The file
-readers' own flags (``-j``, ``--device-prefetch``) have no effect with
-``--dataset synthetic``, as in the JAX driver.
+(``ContrastiveConfig``, ``EvalConfig``, ``DETRConfig``,
+``add_args_from_dataclass``, ``parse_into``): the same flag names and
+defaults, the reference's underscore flags included (``--enc_layers``,
+``--lr_backbone``, ``--clip_max_norm``), so a JAX command line runs here
+unchanged, plus ``--device``. Flags whose feature has not been ported raise
+``NotImplementedError`` in the drivers (:func:`check_ported`), naming the
+ROADMAP item. The file readers' own flags (``-j``, ``--device-prefetch``)
+have no effect with ``--dataset synthetic``, as in the JAX drivers.
 """
 
 from __future__ import annotations
@@ -91,6 +93,136 @@ class ContrastiveConfig:
                                   "conv input); '' for separate BN passes")
     device: str = _flag("--device", default="cuda",
                         help="'cuda' (default; raises if absent) or 'cpu'")
+
+
+@dataclass
+class EvalConfig:
+    """``Representation_Evaluation.parse()`` flags, plus the framework
+    extensions: the linear-probe driver."""
+
+    model: str = _flag("model", default=None, positional=True,
+                       help="path to the pretrained SimCLR checkpoint")
+    data: str = _flag("data", default=None, positional=True)
+    arch: str = _flag("--arch", "-a", default="ResNet18", choices=MODEL_NAMES)
+    # classifier TYPE, not a path (Representation_Evaluation.py:101,427-437)
+    classifier: str = _flag("--classifier", default="logistic_regression",
+                            choices=["logistic_regression"])
+    dataset: str = _flag("--dataset", default="imagenet", choices=DATASETS)
+    workers: int = _flag("-j", "--workers", default=4)
+    epochs: int = _flag("--epochs", default=90)
+    start_epoch: int = _flag("--start-epoch", default=0)
+    batch_size: int = _flag("-b", "--batch-size", default=256)
+    num_fixations: int = _flag("-f", "--num-fixations", default=2)
+    lr: float = _flag("--lr", "--learning-rate", default=1e-7)
+    lrs: str = _flag("--lrs", "--learning-rate-scaling", default="linear")
+    warmup_epochs: int = _flag("--warmup-epochs", default=10)
+    momentum: float = _flag("--momentum", default=0.9)
+    weight_decay: float = _flag("--weight-decay", "--wd", default=1e-4)
+    print_freq: int = _flag("--print-freq", "-p", default=10)
+    resume: str = _flag("--resume", default="")
+    optimizer: str = _flag("--optimizer", default="adam", choices=OPTIMIZERS)
+    evaluate: bool = _flag("-e", "--evaluate", default=False, action="store_true")
+    test: bool = _flag("-t", "--test", default=False, action="store_true")
+    verbose: bool = _flag("-v", "--verbose", default=False, action="store_true")
+    # --- framework extensions ---
+    canvas_size: int = _flag("--canvas-size", default=640)
+    seed: int = _flag("--seed", default=15)
+    bf16: bool = _flag("--bf16", default=True, action="store_true")
+    checkpoint_dir: str = _flag("--checkpoint-dir", default=".")
+    num_examples: int = _flag("--num-examples", default=0)
+    num_classes: int = _flag("--num-classes", default=1000)
+    multislice: bool = _flag("--multislice", default=False, action="store_true",
+                             help="multi-host mesh (not ported: raises)")
+    export_torch: str = _flag("--export-torch", default="",
+                              help="also write a reference-layout .pth.tar "
+                                   "checkpoint to this path")
+    canvas_cache: str = _flag("--canvas-cache", default="",
+                              help="decode-once canvas cache directory for "
+                                   "the file readers (not ported: raises)")
+    device: str = _flag("--device", default="cuda",
+                        help="'cuda' (default; raises if absent) or 'cpu'")
+
+
+@dataclass
+class DETRConfig:
+    """``DETR_Image_Classification.parse()`` flags, plus the framework
+    extensions: the DETR glimpse-sequence classifier driver."""
+
+    backbone_path: str = _flag("backbone_path", default=None, positional=True)
+    data: str = _flag("data", default=None, positional=True)
+    dataset: str = _flag("--dataset", default="imagenet", choices=DATASETS)
+    workers: int = _flag("-j", "--workers", default=4)
+    epochs: int = _flag("--epochs", default=2)
+    start_epoch: int = _flag("--start-epoch", default=0)
+    batch_size: int = _flag("-b", "--batch-size", default=256)
+    num_fixations: int = _flag("-f", "--num-fixations", default=2)
+    lr: float = _flag("--lr", "--learning-rate", default=1e-4)
+    lr_drop: int = _flag("--lr-drop", default=200)
+    lr_backbone: float = _flag("--lr_backbone", default=1e-5)
+    lrs: str = _flag("--lrs", "--learning-rate-scaling", default="linear")
+    warmup_epochs: int = _flag("--warmup-epochs", default=10)
+    momentum: float = _flag("--momentum", default=0.9)
+    weight_decay: float = _flag("--weight-decay", "--wd", default=1e-4)
+    print_freq: int = _flag("--print-freq", "-p", default=10)
+    resume: str = _flag("--resume", default="")
+    evaluate: bool = _flag("-e", "--evaluate", default=False, action="store_true")
+    test: bool = _flag("-t", "--test", default=False, action="store_true")
+    verbose: bool = _flag("-v", "--verbose", default=False, action="store_true")
+    clip_max_norm: float = _flag("--clip_max_norm", default=0.1)
+    backbone: str = _flag("--backbone", default="ResNet18", choices=MODEL_NAMES)
+    dilation: bool = _flag("--dilation", default=False, action="store_true")
+    position_embedding: str = _flag("--position_embedding", default="sine",
+                                    choices=["sine", "learned"])
+    enc_layers: int = _flag("--enc_layers", default=6)
+    dec_layers: int = _flag("--dec_layers", default=6)
+    dim_feedforward: int = _flag("--dim_feedforward", default=2048)
+    hidden_dim: int = _flag("--hidden_dim", default=256)
+    dropout: float = _flag("--dropout", default=0.1)
+    nheads: int = _flag("--nheads", default=8)
+    num_queries: int = _flag("--num_queries", default=10)
+    pre_norm: bool = _flag("--pre_norm", default=False, action="store_true")
+    # --- framework extensions ---
+    canvas_size: int = _flag("--canvas-size", default=640)
+    seed: int = _flag("--seed", default=15)
+    bf16: bool = _flag("--bf16", default=True, action="store_true")
+    checkpoint_dir: str = _flag("--checkpoint-dir", default=".")
+    num_examples: int = _flag("--num-examples", default=0)
+    num_classes: int = _flag("--num-classes", default=1000)
+    multislice: bool = _flag("--multislice", default=False, action="store_true",
+                             help="multi-host mesh (not ported: raises)")
+    export_torch: str = _flag("--export-torch", default="",
+                              help="also write a reference-layout .pth.tar "
+                                   "checkpoint to this path")
+    canvas_cache: str = _flag("--canvas-cache", default="",
+                              help="decode-once canvas cache directory for "
+                                   "the file readers (not ported: raises)")
+    backbone_norm: str = _flag("--backbone-norm", default="frozen",
+                               choices=["frozen", "group"],
+                               help="backbone norm: 'frozen' (FrozenBatchNorm, "
+                                    "statistics from the pretrained "
+                                    "checkpoint) or 'group' (GroupNorm, for "
+                                    "runs from scratch)")
+    device: str = _flag("--device", default="cuda",
+                        help="'cuda' (default; raises if absent) or 'cpu'")
+
+
+def check_ported(cfg) -> None:
+    """Refuse every flag value of a driver config whose feature is not
+    ported yet, naming the ROADMAP item."""
+    if cfg.dataset != "synthetic":
+        raise NotImplementedError(
+            f"--dataset {cfg.dataset} is not ported yet (ROADMAP: HostLoader, "
+            "the readers and an image decoder); use --dataset synthetic")
+    if cfg.multislice:
+        raise NotImplementedError(
+            "--multislice is not ported yet (ROADMAP: multi-GPU, DDP/SyncBN)")
+    if cfg.canvas_cache:
+        raise NotImplementedError(
+            "--canvas-cache is not ported yet (ROADMAP: HostLoader and the readers)")
+    if getattr(cfg, "unroll_fixations", 0) != 0:
+        raise NotImplementedError(
+            "--unroll-fixations tunes the JAX scan; the eager fixation loop "
+            "has nothing to unroll (leave it at 0)")
 
 
 def add_args_from_dataclass(parser: argparse.ArgumentParser, cls) -> None:

@@ -32,7 +32,7 @@ from time import time
 
 import torch
 
-from multimodal_active_ai_tpu_torch.config import ContrastiveConfig, parse_into
+from multimodal_active_ai_tpu_torch.config import ContrastiveConfig, check_ported, parse_into
 from multimodal_active_ai_tpu_torch.data.synthetic import SyntheticReader
 from multimodal_active_ai_tpu_torch.device import resolve_device, synchronize
 from multimodal_active_ai_tpu_torch.models.simclr import SimCLRModule
@@ -42,35 +42,21 @@ from multimodal_active_ai_tpu_torch.utils import checkpoint as ckpt
 from multimodal_active_ai_tpu_torch.utils.meters import AverageMeter, perf_line, speed_line
 
 
-def _check_ported(cfg: ContrastiveConfig) -> None:
-    """Refuse every flag value whose feature is not ported yet."""
-    if cfg.dataset != "synthetic":
-        raise NotImplementedError(
-            f"--dataset {cfg.dataset} is not ported yet (ROADMAP: HostLoader, "
-            "the readers and an image decoder); use --dataset synthetic")
-    if cfg.multislice:
-        raise NotImplementedError(
-            "--multislice is not ported yet (ROADMAP: multi-GPU, DDP/SyncBN)")
-    if cfg.canvas_cache:
-        raise NotImplementedError(
-            "--canvas-cache is not ported yet (ROADMAP: HostLoader and the readers)")
-    if cfg.unroll_fixations != 0:
-        raise NotImplementedError(
-            "--unroll-fixations tunes the JAX scan; the eager fixation loop "
-            "has nothing to unroll (leave it at 0)")
-
-
-def _generator(device: torch.device, seed: int, stream: int) -> torch.Generator:
+def generator(device: torch.device, seed: int, stream: int) -> torch.Generator:
+    """The driver's draws for one stream (an epoch's train or val loop)."""
     return torch.Generator(device=device).manual_seed(seed * 100_003 + stream)
 
 
-def build_reader(cfg: ContrastiveConfig, split: str, device: torch.device):
-    """The synthetic train/val readers (pipe1/pipe3 equivalents)."""
+def build_reader(cfg, split: str, device: torch.device):
+    """The synthetic train/val readers (pipe1/pipe3 equivalents) of any
+    driver config; labels lie in the config's ``num_classes`` (1000 for
+    SimCLR, which has none)."""
     bs = cfg.batch_size
     n = cfg.num_examples or 64 * bs
     if split != "train":
         n = max(n // 10, bs)
     return SyntheticReader(bs, cfg.canvas_size, num_examples=n,
+                           num_classes=getattr(cfg, "num_classes", 1000),
                            seed=cfg.seed + (0 if split == "train" else 1),
                            device=device)
 
@@ -79,7 +65,7 @@ def main(argv=None):
     cfg = parse_into(ContrastiveConfig, argv, prog="Contrastive_Learning")
     if not cfg.data and cfg.dataset != "synthetic":
         raise Exception("error: No data set provided")
-    _check_ported(cfg)
+    check_ported(cfg)
     device = resolve_device(cfg.device)
     # float32 means float32: TF32 stays off for products and convolutions;
     # --bf16 is the fast path (autocast)
@@ -165,7 +151,7 @@ def main(argv=None):
         batch_time = AverageMeter()
         losses = AverageMeter()
         nbatches = len(train_reader)
-        gen = _generator(device, cfg.seed, epoch)
+        gen = generator(device, cfg.seed, epoch)
         end = time()
         for i, (images, _labels) in enumerate(train_reader):
             last_loss = train_step(state, images, gen)
@@ -185,7 +171,7 @@ def main(argv=None):
         # -t still validates and checkpoints within the single epoch
         top1 = AverageMeter()
         top5 = AverageMeter()
-        val_gen = _generator(device, cfg.seed, 10_000 + epoch)
+        val_gen = generator(device, cfg.seed, 10_000 + epoch)
         for i, (images, _labels) in enumerate(val_reader):
             m = eval_step(state, images, val_gen)
             top1.update(float(m["top1"]), batch)

@@ -1,9 +1,9 @@
-"""BatchNorm with flax semantics.
+"""Norm layers with flax semantics.
 
-Port of the ``bn`` and ``bn_fused`` kinds of
-``multimodal_active_ai_tpu/models/norm.py``
+Port of the ``bn``, ``bn_fused``, ``frozen`` and ``group`` kinds of
+``multimodal_active_ai_tpu/models/norm.py``. ``bn`` and ``bn_fused``
 (``flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5)`` and
-``FusedStatsBatchNorm``). They differ from
+``FusedStatsBatchNorm``) differ from
 ``torch.nn.BatchNorm2d`` where eval-mode outputs would otherwise diverge:
 
 * batch statistics are taken in float32 whatever the input dtype, with the
@@ -17,6 +17,11 @@ The buffers keep torch's names (``weight``, ``bias``, ``running_mean``,
 ``running_var``, ``num_batches_tracked``), so ``state_dict`` keys are those
 of the reference torch checkpoints, and the two kinds' ``state_dict``s are
 interchangeable.
+
+``frozen`` (:class:`FrozenBatchNorm`, the DETR backbone's) holds all four
+tensors as buffers, as the reference's ``FrozenBatchNorm2d`` does, and
+``group`` (:class:`GroupNormAdapter`) is flax's ``GroupNorm`` (ε = 1e-6,
+float32 statistics); neither has a train mode.
 """
 
 from __future__ import annotations
@@ -87,13 +92,64 @@ class FusedStatsBatchNorm(BatchNorm):
         return batch_mean_var(x.movedim(1, -1))
 
 
+class FrozenBatchNorm(nn.Module):
+    """BatchNorm with fixed statistics and affine parameters (the JAX
+    package's ``FrozenBatchNorm``, reference ``backbone.py:35-70``).
+
+    ``scale = weight / sqrt(var + ε)`` and ``shift = bias - mean·scale`` are
+    taken in float32, then ``x·scale + shift`` in the input's dtype (bf16
+    under the drivers' autocast), as the JAX module applies them in its
+    dtype. The four tensors are buffers, so no optimizer sees them, and
+    there is no ``num_batches_tracked``.
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("weight", torch.ones(num_features))
+        self.register_buffer("bias", torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale = self.weight / torch.sqrt(self.running_var + self.eps)
+        shift = self.bias - self.running_mean * scale
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        return x * scale.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
+
+
+class GroupNormAdapter(nn.Module):
+    """flax ``GroupNorm`` over the channel dim 1: ``num_groups`` = the
+    largest divisor of the channel count that is at most 32, float32
+    statistics, ε = 1e-6 (flax's default, not torch's 1e-5), output in the
+    input's dtype. Parameters ``weight``/``bias``."""
+
+    def __init__(self, num_features: int, num_groups: int = 32, eps: float = 1e-6):
+        super().__init__()
+        groups = min(num_groups, num_features)
+        while num_features % groups:
+            groups -= 1
+        self.num_groups = groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = nn.functional.group_norm(x.to(torch.float32), self.num_groups,
+                                     self.weight, self.bias, self.eps)
+        return y.to(x.dtype)
+
+
 def make_norm(kind: str):
-    """Norm-layer factory, the analogue of the reference's ``norm_layer``.
-    ``'bn'`` and ``'bn_fused'`` are ported; the other kinds raise."""
-    if kind == "bn":
-        return BatchNorm
-    if kind == "bn_fused":
-        return FusedStatsBatchNorm
-    raise NotImplementedError(
-        f"norm kind {kind!r} is not ported yet (ROADMAP: sync_bn with the "
-        "multi-GPU item, frozen/group with the DETR slice); use 'bn' or 'bn_fused'")
+    """Norm-layer factory, the analogue of the reference's ``norm_layer``:
+    ``'bn'``, ``'bn_fused'``, ``'frozen'`` or ``'group'``; ``'sync_bn'``
+    raises until the multi-GPU item."""
+    kinds = {"bn": BatchNorm, "bn_fused": FusedStatsBatchNorm,
+             "frozen": FrozenBatchNorm, "group": GroupNormAdapter}
+    if kind in kinds:
+        return kinds[kind]
+    if kind == "sync_bn":
+        raise NotImplementedError(
+            "norm kind 'sync_bn' is not ported yet (ROADMAP: multi-GPU, "
+            "DDP/SyncBN); use 'bn'")
+    raise ValueError(f"unknown norm kind {kind!r}")

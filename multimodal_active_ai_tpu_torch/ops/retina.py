@@ -154,6 +154,17 @@ def sample_unlabeled_params(gen: torch.Generator, batch_size: int,
                      saturation=saturation)
 
 
+def sample_labeled_params(gen: torch.Generator | None, batch_size: int,
+                          src_size: int, fix_yx: torch.Tensor | None = None) -> AugParams:
+    """Parameters of the labeled (probe/DETR) retina: the given fixation
+    ``(B, 2)`` ``(y, x)`` or one drawn ~ U[0,1)² from ``gen``, no rotation,
+    no crop, no photometrics; on ``fix_yx``'s or ``gen``'s device."""
+    if fix_yx is None:
+        fix_yx = _uniform(gen, (batch_size, 2))
+    p = neutral_params(batch_size, src_size, fix_yx.device)
+    return p._replace(fix_yx=fix_yx.to(torch.float32))
+
+
 # ---------------------------------------------------------------------------
 # Matmul mode
 

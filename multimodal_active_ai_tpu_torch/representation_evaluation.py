@@ -1,0 +1,184 @@
+"""Linear-probe representation evaluation driver (PyTorch, CUDA by default).
+
+Port of the JAX package's ``representation_evaluation.py`` (reference
+``Representation_Evaluation.py``): the SimCLR checkpoint's encoder ``f``
+is loaded and frozen (eval mode, ``no_grad``), the features of
+``num_fixations`` labeled glimpses per image are concatenated, and a
+logistic-regression probe is trained with cross-entropy and validated
+(``##Top-1`` / ``##Top-5``). Run it as::
+
+    python -m multimodal_active_ai_tpu_torch.representation_evaluation \\
+        /tmp/ckpt/checkpoint.pth.tar --dataset synthetic --arch ResNet50 \\
+        -b 128 -f 2 --epochs 1 -t --num-examples 384 --checkpoint-dir /tmp/probe
+
+The positional ``model`` is a SimCLR ``.pth.tar`` written by the port's
+``contrastive_learning`` (or the reference); ``g.*`` is dropped. Without
+one the encoder keeps its random initialisation. It runs on ``--device
+cuda`` (the default; it raises if CUDA is absent) or ``--device cpu``.
+Checkpoints are ``classifier_checkpoint.pth.tar`` and
+``classifier_model_best.pth.tar`` in ``--checkpoint-dir``, in the
+reference's four-key schema (``epoch``, ``state_dict``, ``best_prec1``,
+``optimizer``); ``--resume`` takes one of them (or an ``--export-torch``
+file, whose optimizer state is empty, so the moments restart), ``-e`` only
+validates, and ``--export-torch`` writes the probe's ``state_dict``, which
+is the reference layout.
+
+Not ported yet, and raising with the ROADMAP item: ``--dataset
+imagenet/mscoco``, ``--multislice``, ``--canvas-cache``.
+"""
+
+from __future__ import annotations
+
+import os
+from time import time
+
+import torch
+
+from multimodal_active_ai_tpu_torch.config import EvalConfig, check_ported, parse_into
+from multimodal_active_ai_tpu_torch.contrastive_learning import build_reader, generator
+from multimodal_active_ai_tpu_torch.device import resolve_device, synchronize
+from multimodal_active_ai_tpu_torch.models.mlp import LogisticRegression
+from multimodal_active_ai_tpu_torch.models.resnet import encoder_feature_dim
+from multimodal_active_ai_tpu_torch.models.simclr import SimCLRModule
+from multimodal_active_ai_tpu_torch.ops import retina
+from multimodal_active_ai_tpu_torch.train import eval_probe, optimizers, schedule
+from multimodal_active_ai_tpu_torch.train.simclr_train import TrainState
+from multimodal_active_ai_tpu_torch.utils import checkpoint as ckpt
+from multimodal_active_ai_tpu_torch.utils.meters import AverageMeter, speed_line
+
+
+def load_pretrained_encoder(encoder: SimCLRModule, path: str,
+                            device: torch.device) -> bool:
+    """Load the encoder ``f`` of the SimCLR checkpoint at ``path`` into
+    ``encoder.f`` (the projector is never used downstream,
+    ``Representation_Evaluation.py:405-422``). Returns whether a
+    checkpoint was loaded."""
+    if not path or not os.path.isfile(path):
+        print(f"=> no checkpoint found at '{path}' (using random init)")
+        return False
+    print(f"=> loading checkpoint '{path}'")
+    payload = ckpt.load_checkpoint(path, map_location=device)
+    encoder.f.load_state_dict(ckpt.encoder_state_dict(payload.get("state_dict", payload)))
+    print(f"=> loaded pretrained model '{path}'")
+    return True
+
+
+def main(argv=None):
+    cfg = parse_into(EvalConfig, argv, prog="Representation_Evaluation")
+    check_ported(cfg)
+    if cfg.classifier != "logistic_regression":
+        raise Exception(f"error: Unknown classifier {cfg.classifier}")
+    device = resolve_device(cfg.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    retina_cfg = retina.RetinaConfig(canvas_size=cfg.canvas_size)
+    dtype = torch.bfloat16 if cfg.bf16 else torch.float32
+    encoder = SimCLRModule(arch=cfg.arch, norm_kind="bn", dtype=dtype,
+                           generator=torch.Generator().manual_seed(cfg.seed)).to(device)
+    if device.type == "cuda":
+        encoder = encoder.to(memory_format=torch.channels_last)
+    load_pretrained_encoder(encoder, cfg.model, device)
+
+    # LogisticRegression(C·4·4·F, num_classes) (Representation_Evaluation.py:427-439)
+    feat_dim = encoder_feature_dim(cfg.arch) * 16 * cfg.num_fixations
+    probe = LogisticRegression(feat_dim, cfg.num_classes,
+                               generator=torch.Generator().manual_seed(cfg.seed + 1)).to(device)
+
+    train_reader = build_reader(cfg, "train", device)
+    val_reader = build_reader(cfg, "val", device)
+    batch = cfg.batch_size
+    sched = schedule.simclr_learning_rate(
+        cfg.lr, batch, num_examples=train_reader.num_examples, batch_size=batch,
+        warmup_epochs=cfg.warmup_epochs, train_epochs=cfg.epochs, scaling=cfg.lrs)
+    opt = optimizers.get_optimizer(cfg.optimizer, probe.parameters(), cfg.momentum,
+                                   cfg.weight_decay)
+    state = TrainState(probe, opt, sched)
+    train_step = eval_probe.make_probe_train_step(retina_cfg, cfg.num_fixations)
+    eval_step = eval_probe.make_probe_eval_step(retina_cfg, cfg.num_fixations)
+
+    ckpt_file = os.path.join(cfg.checkpoint_dir, "classifier_checkpoint.pth.tar")
+    best_file = os.path.join(cfg.checkpoint_dir, "classifier_model_best.pth.tar")
+    best_prec1 = 0.0
+    start_epoch = cfg.start_epoch
+    if cfg.resume and os.path.isfile(cfg.resume):
+        payload = ckpt.load_checkpoint(cfg.resume, map_location=device)
+        probe.load_state_dict(payload["state_dict"])
+        start_epoch = int(payload["epoch"])
+        best_prec1 = float(payload["best_prec1"])
+        if payload["optimizer"] is not None:
+            opt.load_state_dict(payload["optimizer"])
+        taken = optimizers.updates_taken(opt)
+        state.step = start_epoch * len(train_reader) if taken is None else taken
+        print(f"=> resumed classifier from '{cfg.resume}' (epoch {start_epoch}, "
+              f"step {state.step})")
+    elif cfg.resume:
+        print(f"=> no checkpoint found at '{cfg.resume}'")
+
+    def run_validation(stream: int) -> tuple[float, float]:
+        top1, top5 = AverageMeter(), AverageMeter()
+        gen = generator(device, cfg.seed, stream)
+        for i, (images, labels) in enumerate(val_reader):
+            m = eval_step(state, encoder, images, labels, gen)
+            top1.update(float(m["top1"]) * 100, batch)
+            top5.update(float(m["top5"]) * 100, batch)
+            if cfg.test and i > 10:
+                break
+        val_reader.reset()
+        return top1.avg, top5.avg
+
+    if cfg.evaluate:
+        prec1, prec5 = run_validation(999)
+        print(f"##Top-1 {prec1}\n##Top-5 {prec5}")
+        return prec1, prec5
+
+    total_time = AverageMeter()
+    epoch = start_epoch - 1
+    for epoch in range(start_epoch, cfg.epochs):
+        batch_time, losses = AverageMeter(), AverageMeter()
+        nbatches = len(train_reader)
+        gen = generator(device, cfg.seed, 20_000 + epoch)
+        end = time()
+        for i, (images, labels) in enumerate(train_reader):
+            m = train_step(state, encoder, images, labels, gen)
+            if cfg.test and i > 10:
+                break
+            if i % cfg.print_freq == 0:
+                losses.update(float(m["loss"]), batch)
+                synchronize(device)
+                batch_time.update((time() - end) / cfg.print_freq)
+                end = time()
+                print(speed_line(epoch, i, nbatches, batch_time, losses, batch))
+        train_reader.reset()
+        total_time.update(batch_time.avg)
+
+        prec1, prec5 = run_validation(50_000 + epoch)
+        is_best = prec1 > best_prec1
+        best_prec1 = max(prec1, best_prec1)
+        ckpt.save_checkpoint({"epoch": epoch + 1, "state_dict": probe.state_dict(),
+                              "best_prec1": best_prec1, "optimizer": opt.state_dict()},
+                             is_best, filename=ckpt_file, best_filename=best_file)
+        perf = batch / total_time.avg if total_time.avg else float("nan")
+        print(f"##Top-1 {prec1}\n##Top-5 {prec5}\n##Best Top-1 saved {best_prec1}\n"
+              f"##Perf {perf}")
+        if cfg.test:
+            break
+
+    if cfg.export_torch:
+        # the probe's state_dict already is the reference layout
+        ckpt.save_checkpoint({"epoch": epoch + 1,
+                              "state_dict": {k: v.cpu() for k, v in probe.state_dict().items()},
+                              "best_prec1": best_prec1, "optimizer": None},
+                             False, filename=cfg.export_torch)
+        print(f"=> exported reference-layout checkpoint to '{cfg.export_torch}'")
+    return state
+
+
+def cli() -> int:
+    """Console entry point: exit 0 on success."""
+    main()
+    return 0
+
+
+if __name__ == "__main__":
+    main()

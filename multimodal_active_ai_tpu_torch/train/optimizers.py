@@ -1,4 +1,4 @@
-"""Optimizer construction: sgd / adam / lars.
+"""Optimizer construction: sgd / adam / lars / adamw.
 
 Port of ``multimodal_active_ai_tpu/train/optimizers.py`` (reference
 ``SimCLR/Model_Util.py:68-88``), with the update arithmetic of the optax
@@ -10,7 +10,10 @@ chains the JAX package builds:
 * ``adam``: ``torch.optim.Adam`` with optax's β = (0.9, 0.999), ε = 1e-8;
 * ``lars``: Adam wrapped in apex ``LARC`` (clip mode, trust coefficient
   η = 0.02): each parameter's Adam step is scaled by
-  ``min(1, η·‖p‖ / (‖step‖ + 1e-8))`` when both norms are positive.
+  ``min(1, η·‖p‖ / (‖step‖ + 1e-8))`` when both norms are positive;
+* ``adamw`` (the DETR driver's): ``optax.adamw`` decays every parameter,
+  biases and LayerNorm included, by ``lr·wd·p`` on the pre-update value,
+  which is ``torch.optim.AdamW`` with ε = 1e-8.
 
 The learning rate is set per update from the schedule by the trainer
 (:func:`set_learning_rate`), as optax evaluates its schedule per update.
@@ -64,9 +67,10 @@ class LARCAdam(torch.optim.Optimizer):
 
 def get_optimizer(name: str, params: Iterable, momentum: float = 0.9,
                   weight_decay: float = 1e-4) -> torch.optim.Optimizer:
-    """sgd / adam / lars with the reference's wiring (SGD takes momentum and
-    weight decay, Adam and LARS only the learning rate). The initial
-    learning rate is 0; the trainer sets it per update."""
+    """sgd / adam / lars / adamw with the reference's wiring (SGD takes
+    momentum and weight decay, Adam and LARS only the learning rate, AdamW
+    the weight decay). The initial learning rate is 0; the trainer sets it
+    per update."""
     if name == "sgd":
         return torch.optim.SGD(params, lr=0.0, momentum=momentum,
                                weight_decay=weight_decay)
@@ -74,11 +78,22 @@ def get_optimizer(name: str, params: Iterable, momentum: float = 0.9,
         return torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
     if name == "lars":
         return LARCAdam(params, lr=0.0)
-    if name in ("adamw", "rmsprop"):
+    if name == "adamw":
+        return torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=weight_decay)
+    if name == "rmsprop":
         raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet (ROADMAP: the DETR and "
-            "RLS slices)")
+            "optimizer 'rmsprop' is not ported yet (ROADMAP: the RLS slice)")
     raise ValueError(f"Unknown optimizer {name}")
+
+
+def updates_taken(optimizer: torch.optim.Optimizer) -> int | None:
+    """The update count an Adam-family optimizer keeps in its state (its
+    ``step``), or None where the state holds none (SGD, or no update yet)."""
+    for state in optimizer.state.values():
+        if "step" in state:
+            return int(state["step"])
+    return None
 
 
 def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:

@@ -1,4 +1,4 @@
-"""Checkpoints of the SimCLR driver, and JAX weights carried across.
+"""Checkpoints of the drivers, and JAX weights carried across.
 
 * :func:`from_jax_variables` maps the JAX ``SimCLRModule`` variables
   (nested dicts of numpy arrays) onto this package's ``state_dict``, which is
@@ -11,11 +11,19 @@
   layout, and ``norm_kind='bn_fused'``'s ``FusedStatsBatchNorm_k`` slots read
   as the ``BatchNorm_k`` they replace, so every form gives the same
   ``state_dict``.
-* :func:`save_checkpoint` / :func:`load_checkpoint` write and read the
-  driver's payload (``epoch``, ``step``, ``state_dict``, ``best_prec1``,
-  ``optimizer``, the loss/top-1/top-5 histories and ``total_time``) with
-  ``torch.save``, as ``checkpoint.pth.tar`` plus a ``model_best.pth.tar``
-  copy.
+* :func:`from_jax_probe_variables` and :func:`from_jax_detr_variables` do
+  the same for the linear probe and the DETR classifier: the port's copies
+  of ``export_torch_classifier_state_dict`` and
+  ``export_torch_detr_state_dict`` (the reference ``linear.*`` and
+  ``detr_CLA`` layouts, which are the port's ``state_dict``s).
+* :func:`load_simclr_backbone` puts a SimCLR ``state_dict``'s encoder ``f``
+  into a DETR backbone with FrozenBatchNorm buffers.
+* :func:`save_checkpoint` / :func:`load_checkpoint` write and read a
+  driver's payload with ``torch.save`` (SimCLR: ``epoch``, ``step``,
+  ``state_dict``, ``best_prec1``, ``optimizer``, the loss/top-1/top-5
+  histories and ``total_time``; probe and DETR: the reference's four keys
+  ``epoch``, ``state_dict``, ``best_prec1``, ``optimizer``), plus a copy
+  under the best-model name.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import numpy as np
 import torch
 
 from multimodal_active_ai_tpu_torch.models.conv_bn import is_fused_layout, unfuse_variables
+from multimodal_active_ai_tpu_torch.models.norm import FrozenBatchNorm
 
 
 def _conv_hwio_to_oihw(k) -> np.ndarray:
@@ -131,6 +140,153 @@ def from_jax_variables(params: dict, batch_stats: dict) -> "OrderedDict[str, tor
         put("g.layers.2.weight", np.asarray(g["Dense_1"]["kernel"]).T)
         put("g.layers.2.bias", g["Dense_1"]["bias"])
     return sd
+
+
+def from_jax_probe_variables(params: dict, num_fixations: int
+                             ) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``LogisticRegression`` params → the probe's ``state_dict``
+    (``linear.weight`` ``(out, F·C·16)``, ``linear.bias``): each fixation's
+    block of the kernel is permuted from the NHWC flatten to the C-major
+    one."""
+    kernel = np.asarray(params["Dense_0"]["kernel"])          # (F·16·C, out)
+    per_fix = kernel.shape[0] // num_fixations
+    if per_fix * num_fixations != kernel.shape[0] or per_fix % 16:
+        raise ValueError(f"probe kernel {kernel.shape} does not split into "
+                         f"{num_fixations} blocks of 16·C rows")
+    w = np.concatenate([linear_on_flattened_conv(kernel[f * per_fix:(f + 1) * per_fix],
+                                                 (per_fix // 16, 4, 4))
+                        for f in range(num_fixations)], axis=1)
+    return OrderedDict([("linear.weight", torch.from_numpy(w.astype(np.float32))),
+                        ("linear.bias", torch.from_numpy(
+                            np.array(params["Dense_0"]["bias"], np.float32)))])
+
+
+def _mha_from_flax(tree: dict) -> dict[str, np.ndarray]:
+    """flax ``MultiHeadDotProductAttention`` params → the packed
+    ``in_proj_weight`` (rows q, k, v; ``y = W x``), ``in_proj_bias`` and
+    ``out_proj``."""
+    d = np.asarray(tree["out"]["bias"]).shape[0]
+    qkv = ("query", "key", "value")
+    return {
+        "in_proj_weight": np.concatenate(
+            [np.asarray(tree[n]["kernel"]).reshape(d, d).T for n in qkv], 0),
+        "in_proj_bias": np.concatenate([np.asarray(tree[n]["bias"]).reshape(d) for n in qkv]),
+        "out_proj.weight": np.asarray(tree["out"]["kernel"]).reshape(d, d).T,
+        "out_proj.bias": np.asarray(tree["out"]["bias"]),
+    }
+
+
+def from_jax_transformer_variables(tr: dict) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``Transformer`` params → the port's ``Transformer`` ``state_dict``
+    (flax tracing order: ``Dense_0/1`` ↔ ``linear1/2``, ``LayerNorm_k`` ↔
+    ``norm{k+1}``, ``_MHA_0/1`` ↔ ``self_attn``/``multihead_attn``; the
+    pre-norm encoder's final ``LayerNorm_0`` ↔ ``encoder.norm``)."""
+    sd: OrderedDict[str, torch.Tensor] = OrderedDict()
+
+    def put(key, value):
+        sd[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+
+    def put_layer(layer, prefix, attns, n_norms):
+        for slot, name in attns:
+            for key, v in _mha_from_flax(layer[slot]["MultiHeadDotProductAttention_0"]).items():
+                put(f"{prefix}.{name}.{key}", v)
+        for j in (0, 1):
+            put(f"{prefix}.linear{j + 1}.weight", np.asarray(layer[f"Dense_{j}"]["kernel"]).T)
+            put(f"{prefix}.linear{j + 1}.bias", layer[f"Dense_{j}"]["bias"])
+        for n in range(n_norms):
+            put(f"{prefix}.norm{n + 1}.weight", layer[f"LayerNorm_{n}"]["scale"])
+            put(f"{prefix}.norm{n + 1}.bias", layer[f"LayerNorm_{n}"]["bias"])
+
+    for name in tr:
+        i = name.split("_")[-1]
+        if name.startswith("TransformerEncoderLayer_"):
+            put_layer(tr[name], f"encoder.layers.{i}", [("_MHA_0", "self_attn")], 2)
+        elif name.startswith("TransformerDecoderLayer_"):
+            put_layer(tr[name], f"decoder.layers.{i}",
+                      [("_MHA_0", "self_attn"), ("_MHA_1", "multihead_attn")], 3)
+    put("decoder.norm.weight", tr["decoder_norm"]["scale"])
+    put("decoder.norm.bias", tr["decoder_norm"]["bias"])
+    if "LayerNorm_0" in tr:
+        put("encoder.norm.weight", tr["LayerNorm_0"]["scale"])
+        put("encoder.norm.bias", tr["LayerNorm_0"]["bias"])
+    return sd
+
+
+def from_jax_detr_variables(params: dict, batch_stats: dict
+                            ) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``DETR`` variables (FrozenBatchNorm backbone) → the port's DETR
+    ``state_dict``, the reference ``detr_CLA`` layout of
+    ``export_torch_detr_state_dict``: ``backbone.0.body.*`` with the four
+    FrozenBatchNorm buffers (no ``num_batches_tracked``), the transformer's
+    packed attention projections, ``input_proj.weight`` ``(out, C·16, 1)``
+    over the C-major flatten, ``query_embed``, ``class_embed`` and, for the
+    learned embedding, ``backbone.1.{row,col}_embed.weight``."""
+    sd: OrderedDict[str, torch.Tensor] = OrderedDict()
+
+    def put(key, value):
+        sd[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+
+    def put_frozen(tkey, s_bn):
+        for name, slot in (("weight", "weight"), ("bias", "bias"),
+                           ("running_mean", "mean"), ("running_var", "var")):
+            put(f"{tkey}.{name}", s_bn[slot])
+
+    bb = "backbone.0.body."
+    f_params, f_stats = params["backbone_f"], batch_stats.get("backbone_f")
+    if f_stats is None:
+        raise ValueError("from_jax_detr_variables carries FrozenBatchNorm backbones; "
+                         "these variables have no backbone statistics")
+    put(bb + "conv1.weight", _conv_hwio_to_oihw(f_params["conv1"]["kernel"]))
+    put_frozen(bb + "bn1", f_stats["bn1"])
+    for name in f_params:
+        if not name.startswith("layer"):
+            continue
+        stage, idx = name[5:].split("_")
+        prefix = f"{bb}layer{stage}.{idx}."
+        block_p, block_s = f_params[name], f_stats[name]
+        convs = _sorted_slots(block_p, "Conv_")
+        fbns = _sorted_slots(block_s, "FrozenBatchNorm_")
+        has_down = _has_downsample(block_p, convs)
+        for j in range(len(convs) - (1 if has_down else 0)):
+            put(f"{prefix}conv{j + 1}.weight", _conv_hwio_to_oihw(block_p[convs[j]]["kernel"]))
+            put_frozen(f"{prefix}bn{j + 1}", block_s[fbns[j]])
+        if has_down:
+            put(prefix + "downsample.0.weight", _conv_hwio_to_oihw(block_p[convs[-1]]["kernel"]))
+            put_frozen(prefix + "downsample.1", block_s[fbns[-1]])
+
+    k = np.asarray(params["input_proj"]["kernel"])              # (16·C, hidden)
+    put("input_proj.weight", linear_on_flattened_conv(k, (k.shape[0] // 16, 4, 4))[:, :, None])
+    put("input_proj.bias", params["input_proj"]["bias"])
+    put("query_embed.weight", params["query_embed"])
+    put("class_embed.weight", np.asarray(params["class_embed"]["kernel"]).T)
+    put("class_embed.bias", params["class_embed"]["bias"])
+
+    for key, value in from_jax_transformer_variables(params["transformer"]).items():
+        sd["transformer." + key] = value
+    pos = params.get("pos_embed")
+    if isinstance(pos, dict) and "row_embed" in pos:
+        put("backbone.1.row_embed.weight", pos["row_embed"]["embedding"])
+        put("backbone.1.col_embed.weight", pos["col_embed"]["embedding"])
+    return sd
+
+
+def encoder_state_dict(simclr_sd: dict) -> "OrderedDict[str, torch.Tensor]":
+    """The encoder ``f`` of a SimCLR ``state_dict``, its ``f.`` prefix
+    stripped (the projector ``g`` is dropped)."""
+    return OrderedDict((k[2:], v) for k, v in simclr_sd.items() if k.startswith("f."))
+
+
+def load_simclr_backbone(body: torch.nn.Module, simclr_sd: dict) -> None:
+    """Load a SimCLR ``state_dict``'s encoder into a DETR backbone ``body``
+    (``backbone.py:199-213``): BatchNorm ``weight``/``bias``/``running_*``
+    become the FrozenBatchNorm buffers, ``num_batches_tracked`` is dropped.
+    A GroupNorm backbone has no slot for the statistics and raises."""
+    if not any(isinstance(m, FrozenBatchNorm) for m in body.modules()):
+        raise ValueError("--backbone-norm group cannot load a FrozenBatchNorm-layout "
+                         "checkpoint; use --backbone-norm frozen for pretrained backbones")
+    body.load_state_dict(OrderedDict(
+        (k, v) for k, v in encoder_state_dict(simclr_sd).items()
+        if not k.endswith(".num_batches_tracked")))
 
 
 def save_checkpoint(payload: dict[str, Any], is_best: bool,

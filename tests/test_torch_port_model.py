@@ -118,7 +118,7 @@ def test_batchnorm_differs_from_torch_running_var_on_purpose():
     ref = torch.nn.functional.batch_norm(x, None, None, training=True, eps=1e-5)
     torch.testing.assert_close(y, ref, rtol=1e-4, atol=1e-4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnorm.make_norm("frozen")
+        tnorm.make_norm("sync_bn")
 
 
 def test_bf16_forward_keeps_f32_parameters_and_output(resnet10):

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of one PyTorch-port SimCLR train step goes, on one GPU.
+"""Where the time of one PyTorch-port train step goes, on one GPU.
 
-Builds the port's model, optimizer and train step as the training entry
-point (``multimodal_active_ai_tpu_torch.contrastive_learning``) does, runs
-warm-up steps, then times ``--steps`` steps with the host clock around
+Builds the port's model, optimizer and train step as a training entry point
+does (``--path simclr``: ``contrastive_learning``; ``probe``:
+``representation_evaluation``, encoder frozen in eval mode; ``detr``:
+``detr_image_classification`` with its default model, random weights),
+runs warm-up steps, then times ``--steps`` steps with the host clock around
 synchronised steps and traces one more with ``torch.profiler``. Prints the
 step time, the traced step's device busy time as a share of the untraced
 median step, device time by kernel group and the top kernels by device
@@ -11,6 +13,7 @@ time, then one JSON line with the same numbers.
 
     python3 tools/profile_torch_step.py --arch ResNet50 -b 128 -f 10
     python3 tools/profile_torch_step.py --stat-fusion pallas --norm-kind bn_fused
+    python3 tools/profile_torch_step.py --path detr -f 2
 
 ``--stat-fusion`` and ``--norm-kind`` select the fused BatchNorm
 statistics (the ``conv1x1_stats`` and ``stat_sums`` kernels), as the JAX
@@ -33,9 +36,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 from multimodal_active_ai_tpu_torch.device import resolve_device  # noqa: E402
+from multimodal_active_ai_tpu_torch.models.detr import DETR  # noqa: E402
+from multimodal_active_ai_tpu_torch.models.mlp import LogisticRegression  # noqa: E402
+from multimodal_active_ai_tpu_torch.models.resnet import encoder_feature_dim  # noqa: E402
 from multimodal_active_ai_tpu_torch.models.simclr import SimCLRModule  # noqa: E402
+from multimodal_active_ai_tpu_torch.objectives.set_criterion import SetCriterion  # noqa: E402
 from multimodal_active_ai_tpu_torch.ops import retina  # noqa: E402
-from multimodal_active_ai_tpu_torch.train import optimizers, schedule, simclr_train  # noqa: E402
+from multimodal_active_ai_tpu_torch.train import (  # noqa: E402
+    detr_train, eval_probe, optimizers, schedule, simclr_train)
 
 # kernel-name fragments → group, first match wins
 GROUPS = [
@@ -47,6 +55,7 @@ GROUPS = [
     ("nhwc", "convolution"), ("wgrad", "convolution"), ("dgrad", "convolution"),
     ("reduce", "reductions (BN statistics, losses)"),
     ("multi_tensor_apply", "optimizer"), ("foreach", "optimizer"),
+    ("softmax", "softmax / layer norm"), ("layer_norm", "softmax / layer norm"),
     ("elementwise", "elementwise (BN, ReLU, casts)"), ("copy", "copies / casts"),
     ("index", "gather / index"), ("randn", "random"), ("normal", "random"),
     ("uniform", "random"),
@@ -65,7 +74,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="ResNet50")
     ap.add_argument("-b", "--batch-size", type=int, default=128)
-    ap.add_argument("-f", "--num-fixations", type=int, default=10)
+    ap.add_argument("--path", default="simclr", choices=["simclr", "probe", "detr"])
+    ap.add_argument("-f", "--num-fixations", type=int, default=None,
+                    help="default 10 for simclr, 2 for probe and detr")
     ap.add_argument("--canvas-size", type=int, default=640)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=20)
@@ -81,19 +92,42 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()[0]
     b, s = args.batch_size, args.canvas_size
+    f = args.num_fixations or (10 if args.path == "simclr" else 2)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    model = SimCLRModule(arch=args.arch, dtype=dtype, norm_kind=args.norm_kind,
-                         stat_fusion=args.stat_fusion or None,
-                         generator=torch.Generator().manual_seed(15))
-    model = model.to(device).to(memory_format=torch.channels_last)
-    opt = optimizers.get_optimizer("adam", model.parameters())
-    sched = schedule.simclr_learning_rate(0.01, b, 64 * b, b, 10, 190)
-    state = simclr_train.TrainState(model, opt, sched)
-    step = simclr_train.make_train_step(retina.RetinaConfig(canvas_size=s),
-                                        args.num_fixations, 0.05)
+    cfg = retina.RetinaConfig(canvas_size=s)
+    seeded = torch.Generator().manual_seed(15)
     gen = torch.Generator(device=device).manual_seed(0)
     images = torch.randint(0, 256, (b, s, s, 3), generator=gen, dtype=torch.uint8,
                            device=device)
+    labels = torch.randint(0, 1000, (b,), generator=gen, device=device)
+    if args.path == "simclr":
+        model = SimCLRModule(arch=args.arch, dtype=dtype, norm_kind=args.norm_kind,
+                             stat_fusion=args.stat_fusion or None, generator=seeded)
+        model = model.to(device).to(memory_format=torch.channels_last)
+        state = simclr_train.TrainState(model, optimizers.get_optimizer("adam", model.parameters()),
+                                        schedule.simclr_learning_rate(0.01, b, 64 * b, b, 10, 190))
+        step = simclr_train.make_train_step(cfg, f, 0.05)
+    elif args.path == "probe":
+        encoder = SimCLRModule(arch=args.arch, dtype=dtype, generator=seeded)
+        encoder = encoder.to(device).to(memory_format=torch.channels_last).eval()
+        probe = LogisticRegression(encoder_feature_dim(args.arch) * 16 * f, 1000,
+                                   generator=seeded).to(device)
+        state = simclr_train.TrainState(probe, optimizers.get_optimizer("adam", probe.parameters()),
+                                        schedule.simclr_learning_rate(1e-7, b, 64 * b, b, 10, 90))
+        probe_step = eval_probe.make_probe_train_step(cfg, f)
+
+        def step(state, images, gen):
+            return probe_step(state, encoder, images, labels, gen)
+    else:
+        model = DETR(args.arch, dtype=dtype, generator=seeded)
+        model = model.to(device).to(memory_format=torch.channels_last)
+        state = simclr_train.TrainState(
+            model, detr_train.make_detr_optimizer(model, 1e-4, 1e-5, 1e-4),
+            detr_train.step_lr(64, 200))
+        detr_step = detr_train.make_detr_train_step(SetCriterion(10, 1000), cfg, f, 0.1)
+
+        def step(state, images, gen):
+            return detr_step(state, images, labels, gen)
 
     for _ in range(2):                       # warm-up (cuDNN plans, allocator)
         step(state, images, gen)
@@ -131,7 +165,7 @@ def main(argv=None) -> int:
         rec[1] += 1
     times.sort()
     median = times[len(times) // 2]
-    print(f"[{gpu}] {args.arch} b={b} F={args.num_fixations} canvas {s} "
+    print(f"[{gpu}] {args.path} {args.arch} b={b} F={f} canvas {s} "
           f"{'bf16' if args.bf16 else 'f32'} norm {args.norm_kind} stat-fusion "
           f"{args.stat_fusion or 'none'}: step {median:.1f} ms (median of "
           f"{[round(t, 1) for t in times]}); traced step {traced_ms:.1f} ms "
@@ -146,7 +180,7 @@ def main(argv=None) -> int:
     for name, (ms, n) in top:
         print(f"  {ms:9.2f} ms  {n:5d}x  {name[:110]}")
     print(json.dumps({
-        "gpu": gpu, "arch": args.arch, "batch": b, "fixations": args.num_fixations,
+        "gpu": gpu, "path": args.path, "arch": args.arch, "batch": b, "fixations": f,
         "norm_kind": args.norm_kind, "stat_fusion": args.stat_fusion,
         "step_ms": median, "step_ms_all": times, "traced_step_ms": traced_ms,
         "device_busy_ms": busy_ms, "busy_share_of_step": busy_ms / median,

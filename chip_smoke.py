@@ -46,6 +46,17 @@ result line):
    queries, 1000 classes) on that ResNet-50 backbone; its frozen stem and
    layer1 unchanged and its ``aux_logits`` of the right shape. Median probe
    and DETR train steps, with peak memory.
+3e. The RLS driver, ``detr_image_classification_rls.main``, from the same
+   checkpoint: that DETR model, a ResNet18 DQN (A = 100, -dqnb 256, replay
+   capacity 10,000), F=2, 3 train steps and validation, the target synced
+   every epoch. B1 is launched once per fixation: F a train step and 2F an
+   eval batch (the random control and the greedy policy), 10 in all; B2-B4
+   never; the DQN updates are those the seed's coins give; three
+   checkpoints (the best-model copy when top-1 beats 0), the target equal
+   to the policy. Then its resume to epoch 2 (policy in the loop; its first
+   step sees every tensor of both checkpoints), and the median RLS train
+   step and DQN update. Phase 2 also holds B1 at the RLS plan (R = B =
+   128 labeled rows, one fixation) and times it against its bound.
 4. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX. It exits non-zero without CUDA, and when the
@@ -288,6 +299,11 @@ def check_glimpse_sample(torch, gs, retina):
     lab_args = retina.sampler_args(pyramid, lab_params, lab_cfg)
     errs.append(compare(f"labeled plan (F={PROBE_FIXATIONS}, F*B={PROBE_FIXATIONS * BATCH})",
                         lab_args, main))
+    # the RLS plan: one fixation of the sequential rollout, R = B labeled
+    # rows over the B-image pyramid
+    rls_args = retina.sampler_args(pyramid, retina.sample_labeled_params(gen, BATCH, CANVAS),
+                                   lab_cfg)
+    errs.append(compare(f"RLS plan (one fixation, R=B={BATCH})", rls_args, main))
 
     # times at the main-path shapes, L2 flushed before each call
     flush_buf = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)
@@ -331,6 +347,14 @@ def check_glimpse_sample(torch, gs, retina):
           f"L=4, P=900) [{', '.join(main)}]: kernel {lab_ms:.4f} ms, plain {lab_plain_ms:.4f} "
           f"ms, bound {lab_bound_ms:.4f} ms ({lab_by}: {lab_bytes / 1e6:.2f} MB); "
           f"{100 * lab_bound_ms / lab_ms:.1f}% of the bound")
+    rls_ms = time_ms(lambda: gs.glimpse_sample(*rls_args), torch, 50, flush)
+    rls_plain_ms = time_ms(lambda: gs.glimpse_sample_plain(*rls_args), torch, 5, flush)
+    rls_bytes, rls_flops = glimpse_bound(torch, *rls_args[:6])
+    rls_bound_ms, rls_by = bound(rls_bytes, rls_flops / PEAK_F32_FLOPS)
+    print(f"glimpse_sample times, RLS plan (one fixation, R=B={BATCH}, L=4, P=900) "
+          f"[{', '.join(main)}]: kernel {rls_ms:.4f} ms, plain {rls_plain_ms:.4f} ms, bound "
+          f"{rls_bound_ms:.4f} ms ({rls_by}: {rls_bytes / 1e6:.2f} MB); "
+          f"{100 * rls_bound_ms / rls_ms:.1f}% of the bound")
     return {
         "name": "glimpse_sample",
         "route": "cuda",
@@ -763,9 +787,10 @@ def reset_counts(kernels) -> None:
 
 
 def median_step_ms(torch, step, label, device_name, fixations, peak_gib=None,
-                   steps=3) -> float:
+                   steps=3, what=None, batch=BATCH) -> float:
     """Median host time of ``steps`` synchronised calls of ``step()``
-    (bf16, ResNet-50 b=128, canvas 640), printed with img/s."""
+    (bf16, ResNet-50 b=128, canvas 640, unless ``what`` says otherwise),
+    printed with ``batch`` samples a step per second."""
     times = []
     for _ in range(steps):
         torch.cuda.synchronize()
@@ -775,9 +800,10 @@ def median_step_ms(torch, step, label, device_name, fixations, peak_gib=None,
         times.append((time.perf_counter() - t0) * 1e3)
     med = sorted(times)[steps // 2]
     mem = "" if peak_gib is None else f"; peak memory {peak_gib:.2f} GiB"
-    print(f"train step {label} ({ARCH}, b={BATCH}, F={fixations}, canvas {CANVAS}, bf16): "
+    what = what or f"{ARCH}, b={BATCH}, F={fixations}, canvas {CANVAS}, bf16"
+    print(f"train step {label} ({what}): "
           f"median {med:.1f} ms over {steps} steps {[round(t, 1) for t in times]}, "
-          f"{BATCH / med * 1e3:.1f} img/s{mem} [{device_name}]")
+          f"{batch / med * 1e3:.1f} samples/s{mem} [{device_name}]")
     return med
 
 
@@ -992,6 +1018,165 @@ def run_detr_path(torch, counters, simclr_ck, workdir, device_name):
     return launches, ms
 
 
+def expected_dqn_updates(seed: int, steps: int, batch: int, capacity: int, dqnb: int) -> int:
+    """The DQN updates of an RLS driver run: the ``RandomState(seed)`` coin
+    < 0.7, drawn only once the replay memory holds ``dqnb`` transitions (one
+    pushed per sample and step)."""
+    import numpy as np
+    rs, size, n = np.random.RandomState(seed), 0, 0
+    for _ in range(steps):
+        size = min(size + batch, capacity)
+        n += size >= dqnb and rs.uniform() < 0.7
+    return n
+
+
+def run_rls_path(torch, counters, simclr_ck, workdir, device_name):
+    """Phase 3e: the RLS driver from the phase-3 SimCLR checkpoint (DETR's
+    default model on ResNet-50, ResNet18 DQN, A = 100, -dqnb 256, capacity
+    10,000, b=128, F=2, canvas 640, bf16; target synced every epoch):
+    launches, DQN updates, the three checkpoints, target = policy; its
+    resume to epoch 2 with the policy in the loop, every tensor restored;
+    the median RLS train step and DQN update. Returns the B1 launches, the
+    two medians and the peak memory."""
+    import copy
+    from multimodal_active_ai_tpu_torch import detr_image_classification_rls as rls_driver
+    from multimodal_active_ai_tpu_torch.objectives.set_criterion import SetCriterion
+    from multimodal_active_ai_tpu_torch.ops import retina
+    from multimodal_active_ai_tpu_torch.rl.replay_memory import ReplayMemory
+    from multimodal_active_ai_tpu_torch.train import rls_train
+    from multimodal_active_ai_tpu_torch.utils import checkpoint
+
+    f = PROBE_FIXATIONS
+    ckdir = os.path.join(workdir, "rls")
+    argv = [simclr_ck, "--dataset", "synthetic", "--backbone", ARCH, "-b", str(BATCH),
+            "-f", str(f), "--canvas-size", str(CANVAS), "--epochs", "1", "-t",
+            "--num-examples", str(EXAMPLES), "--checkpoint-dir", ckdir, "-p", "1",
+            "--target-update-freq", "1"]
+    want = {"glimpse_sample": TRAIN_STEPS * f + EVAL_STEPS * 2 * f, "stat_sums": 0,
+            "conv1x1_stats": 0, "hat_sample": 0}
+    updates = expected_dqn_updates(15, TRAIN_STEPS, BATCH, 10_000, 256)
+    names = {n: os.path.join(ckdir, n) for n in (
+        "detr_classifier_checkpoint.pth.tar", "detr_classifier_model_best.pth.tar",
+        "dqn_checkpoint.pth.tar")}
+
+    def run(extra, label, epoch, dqn_step):
+        reset_counts(counters.values())
+        t0 = time.perf_counter()
+        state, pstate = rls_driver.main(argv + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: c.launches for k, c in counters.items()}
+        print(f"RLS {label}: {TRAIN_STEPS} train + {EVAL_STEPS} eval steps (F={f}); launches "
+              f"{got} (expected {want}); DQN updates to step {pstate.step} (expected "
+              f"{dqn_step}: {updates} a run from RandomState(15)'s coins); wall {wall:.2f} s")
+        if got != want:
+            fail(f"RLS {label} launches {got}, expected {want}")
+        if pstate.step != dqn_step or state.step != epoch * TRAIN_STEPS:
+            fail(f"RLS {label}: DQN step {pstate.step}, DETR step {state.step}")
+        detr = checkpoint.load_checkpoint(names["detr_classifier_checkpoint.pth.tar"], "cuda")
+        dqn = checkpoint.load_checkpoint(names["dqn_checkpoint.pth.tar"], "cuda")
+        if sorted(detr) != ["best_prec1", "epoch", "optimizer", "state_dict"] or sorted(dqn) != [
+                "epoch", "policy_state_dict", "step", "target_state_dict"]:
+            fail(f"RLS {label} checkpoint keys {sorted(detr)}, {sorted(dqn)}")
+        # the best-model copy is written when top-1 beats the best so far (0
+        # at the start), as in the JAX driver; at 1000 random classes it may not
+        best = os.path.isfile(names["detr_classifier_model_best.pth.tar"])
+        if detr["epoch"] != epoch or dqn["epoch"] != epoch or dqn["step"] != dqn_step or (
+                detr["best_prec1"] > 0) != best:
+            fail(f"RLS {label}: epochs {detr['epoch']}/{dqn['epoch']}, DQN step {dqn['step']}, "
+                 f"best_prec1 {detr['best_prec1']}, best file {best}")
+        tensors = [*detr["state_dict"].values(), *dqn["policy_state_dict"].values()]
+        if not all(bool(torch.isfinite(v.float()).all()) for v in tensors):
+            fail(f"RLS {label} checkpoints hold non-finite weights")
+        if not all(torch.equal(dqn["target_state_dict"][k], v)
+                   for k, v in dqn["policy_state_dict"].items()):
+            fail(f"RLS {label}: the synced target differs from the policy")
+        print(f"RLS {label} checkpoints: {os.path.basename(names['dqn_checkpoint.pth.tar'])} "
+              f"(epoch {dqn['epoch']}, step {dqn['step']}, target = policy, "
+              f"{len(dqn['policy_state_dict'])} tensors), detr_classifier_checkpoint.pth.tar "
+              f"(epoch {detr['epoch']}), best-model copy "
+              f"{'written' if best else 'not written (top-1 0)'}; all finite")
+        return state, pstate, detr, dqn
+
+    gc.collect()
+    torch.cuda.synchronize()
+    held_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    state, pstate, detr, dqn = run([], "run", 1, updates)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+
+    # the resume: the first train step of epoch 1 sees every tensor of both
+    # checkpoints, and the DQN then takes its own updates
+    seen = {}
+    make = rls_train.make_rls_train_step
+
+    def spy(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def first(state, dqn_model, *rest):
+            if not seen:
+                seen.update(model={k: v.clone() for k, v in state.model.state_dict().items()},
+                            opt=copy.deepcopy(state.optimizer.state_dict()),
+                            policy={k: v.clone() for k, v in dqn_model.state_dict().items()},
+                            step=state.step)
+            return step(state, dqn_model, *rest)
+        return first
+
+    rls_train.make_rls_train_step = spy
+    try:
+        run(["--epochs", "2", "--resume", names["detr_classifier_checkpoint.pth.tar"],
+             "--dqn-resume", names["dqn_checkpoint.pth.tar"]], "resume", 2, 2 * updates)
+    finally:
+        rls_train.make_rls_train_step = make
+    same = (seen.get("step") == TRAIN_STEPS
+            and all(torch.equal(seen["model"][k], v) for k, v in detr["state_dict"].items())
+            and all(torch.equal(seen["policy"][k], v) for k, v in dqn["policy_state_dict"].items())
+            and all(torch.equal(seen["opt"]["state"][i][k], v)
+                    for i, st in detr["optimizer"]["state"].items() for k, v in st.items()))
+    if not same:
+        fail("the RLS resume did not restore every tensor of its checkpoints")
+    print(f"RLS resume: the first step of epoch 1 saw all {len(detr['state_dict'])} DETR "
+          f"tensors, the AdamW state of {len(detr['optimizer']['state'])} parameters and all "
+          f"{len(dqn['policy_state_dict'])} DQN tensors of the checkpoints")
+
+    # steady state on the trained run: the train step with its replay push
+    # (ε coins all 1: after fixation 0 the policy picks, as late in
+    # training), then the DQN update on b=256 replay samples
+    dev = torch.device("cuda")
+    cfg = retina.RetinaConfig(canvas_size=CANVAS)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    host_gen = torch.Generator().manual_seed(9)
+    images = torch.randint(0, 256, (BATCH, CANVAS, CANVAS, 3), generator=gen,
+                           dtype=torch.uint8, device=dev)
+    labels = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
+    step = rls_train.make_rls_train_step(SetCriterion(10, 1000), cfg, f, 100, 0.9, 0.05, 10.0,
+                                         0.1)
+    memory = ReplayMemory(10_000, (30, 30, 12), seed=15, device=dev)
+    policy = pstate.model
+
+    def train_step():
+        draws = rls_train.draw_rollout(gen, host_gen, BATCH, f)._replace(coins=(1.0,) * f)
+        m, ro, reward = step(state, policy, images, labels, 1, draws)
+        rls_driver.push_rollout(memory, ro, draws.num_fixs, reward, False)
+        if not bool(torch.isfinite(m["loss_ce"])):
+            fail(f"non-finite RLS loss {float(m['loss_ce'])}")
+
+    rls_ms = median_step_ms(torch, train_step, "RLS (rollout + DETR update + replay push)",
+                            device_name, f, peak_gib, steps=9)
+    update = rls_train.make_dqn_update_step(100, 0.999)
+    target = copy.deepcopy(policy)
+
+    def dqn_step():
+        if not math.isfinite(float(update(pstate, target, memory.sample(256)))):
+            fail("non-finite DQN loss")
+
+    dqn_ms = median_step_ms(torch, dqn_step, "DQN update", device_name, f, steps=9,
+                            what="ResNet18, b=256 replay samples, A=100, bf16", batch=256)
+    print(f"RLS peak memory {peak_gib:.2f} GiB in the driver run ({held_gib:.2f} GiB of it "
+          f"held before it; the replay ring is 0.86 GB)")
+    return want["glimpse_sample"], rls_ms, dqn_ms, peak_gib
+
+
 def run_stat_fusion_paths(torch, counters, driver, ckpt_mod, device_name):
     """Phase 3b: the driver with ``--stat-fusion pallas`` (3 train steps +
     validation, then a resume), and train steps of the ``bn_fused`` +
@@ -1110,7 +1295,8 @@ def main() -> int:
     check_odd_rows(torch, counters)
 
     # phase 3: the main path (norm 'bn'); 3b: the fused-statistics paths;
-    # 3c and 3d: the probe and DETR drivers from the phase-3 checkpoint
+    # 3c, 3d and 3e: the probe, DETR and RLS drivers from the phase-3
+    # checkpoint
     workdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         rows["glimpse_sample"]["launches"], bn_ms, simclr_ck = run_main_path(
@@ -1120,6 +1306,8 @@ def main() -> int:
                                                   device_name)
         detr_launches, detr_ms = run_detr_path(torch, counters, simclr_ck, workdir,
                                                device_name)
+        rls_launches, rls_ms, dqn_ms, rls_peak = run_rls_path(torch, counters, simclr_ck,
+                                                              workdir, device_name)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     rows["conv1x1_stats"]["launches"] = fused["conv1x1_stats"]
@@ -1132,6 +1320,10 @@ def main() -> int:
           f"probe {probe_ms:.1f} ms ({BATCH / probe_ms * 1e3:.1f} img/s), DETR {detr_ms:.1f} "
           f"ms ({BATCH / detr_ms * 1e3:.1f} img/s); glimpse_sample launches probe "
           f"{probe_launches}, DETR {detr_launches} [{device_name}]")
+    print(f"median RLS train step ({ARCH} DETR + ResNet18 DQN, b={BATCH}, F={PROBE_FIXATIONS}, "
+          f"canvas {CANVAS}, bf16): {rls_ms:.1f} ms ({BATCH / rls_ms * 1e3:.1f} img/s), DQN "
+          f"update (b=256) {dqn_ms:.1f} ms, peak memory {rls_peak:.2f} GiB; glimpse_sample "
+          f"launches {rls_launches} a 3 + 1-step run [{device_name}]")
 
     # phase 4: results
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,7 +1,7 @@
 """Driver configs and the argparse shim that builds their CLIs.
 
 The port's own copy of ``multimodal_active_ai_tpu/config.py``
-(``ContrastiveConfig``, ``EvalConfig``, ``DETRConfig``,
+(``ContrastiveConfig``, ``EvalConfig``, ``DETRConfig``, ``RLSConfig``,
 ``add_args_from_dataclass``, ``parse_into``): the same flag names and
 defaults, the reference's underscore flags included (``--enc_layers``,
 ``--lr_backbone``, ``--clip_max_norm``), so a JAX command line runs here
@@ -204,6 +204,27 @@ class DETRConfig:
                                     "runs from scratch)")
     device: str = _flag("--device", default="cuda",
                         help="'cuda' (default; raises if absent) or 'cpu'")
+
+
+@dataclass
+class RLSConfig(DETRConfig):
+    """``DETR_Image_Classification_RLS.parse()`` adds the DQN flags
+    (``DETR_Image_Classification_RLS.py:189-218``) to the DETR driver's."""
+
+    dqn_resume: str = _flag("--dqn-resume", default="")
+    dqn: str = _flag("--dqn", default="ResNet18", choices=MODEL_NAMES)
+    replay_memory_capacity: int = _flag("--replay-memory-capacity", default=10000)
+    dqn_batch_size: int = _flag("-dqnb", "--dqn-batch-size", default=256)
+    gamma: float = _flag("--gamma", default=0.999)
+    eps_start: float = _flag("--eps-start", default=0.9)
+    eps_end: float = _flag("--eps-end", default=0.05)
+    eps_decay: float = _flag("--eps-decay", default=10.0)
+    target_update_freq: int = _flag("--target-update-freq", default=3)
+    num_of_actions: int = _flag("--num-of-actions", default=100)
+    dense_replay: bool = _flag("--dense-replay", default=False, action="store_true",
+                               help="push every consecutive glimpse pair to the "
+                                    "replay (the reference pushes only the final "
+                                    "pair, RLS :757-769)")
 
 
 def check_ported(cfg) -> None:

@@ -61,6 +61,40 @@ def load_backbone(model: detr_models.DETR, path: str, device: torch.device) -> b
     return True
 
 
+def build_model(cfg, device: torch.device):
+    """The config's DETR model on ``device`` (channels-last on CUDA; bf16
+    autocast with ``--bf16``), its criterion, and whether the backbone came
+    from ``cfg.backbone_path``."""
+    dtype = torch.bfloat16 if cfg.bf16 else torch.float32
+    model, criterion = detr_models.build(cfg, num_classes=cfg.num_classes, dtype=dtype,
+                                         generator=torch.Generator().manual_seed(cfg.seed))
+    model = model.to(device)
+    if device.type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    return model, criterion, load_backbone(model, cfg.backbone_path, device)
+
+
+def resume(cfg, state: TrainState, steps_per_epoch: int,
+           device: torch.device) -> tuple[int, float]:
+    """Restore ``--resume``'s model and optimizer state into ``state``
+    (the update count from the optimizer's state, else ``epoch ·
+    steps_per_epoch``); returns ``(start_epoch, best_prec1)``, the config's
+    ``start_epoch`` and 0 when there is nothing to resume."""
+    if cfg.resume and os.path.isfile(cfg.resume):
+        payload = ckpt.load_checkpoint(cfg.resume, map_location=device)
+        state.model.load_state_dict(payload["state_dict"])
+        start_epoch = int(payload["epoch"])
+        if payload["optimizer"] is not None:
+            state.optimizer.load_state_dict(payload["optimizer"])
+        taken = optimizers.updates_taken(state.optimizer)
+        state.step = start_epoch * steps_per_epoch if taken is None else taken
+        print(f"=> resumed from '{cfg.resume}' (epoch {start_epoch}, step {state.step})")
+        return start_epoch, float(payload["best_prec1"])
+    if cfg.resume:
+        print(f"=> no checkpoint found at '{cfg.resume}'")
+    return cfg.start_epoch, 0.0
+
+
 def main(argv=None):
     cfg = parse_into(DETRConfig, argv, prog="DETR_Image_Classification")
     check_ported(cfg)
@@ -69,13 +103,7 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
 
     retina_cfg = retina.RetinaConfig(canvas_size=cfg.canvas_size)
-    dtype = torch.bfloat16 if cfg.bf16 else torch.float32
-    model, criterion = detr_models.build(cfg, num_classes=cfg.num_classes, dtype=dtype,
-                                         generator=torch.Generator().manual_seed(cfg.seed))
-    model = model.to(device)
-    if device.type == "cuda":
-        model = model.to(memory_format=torch.channels_last)
-    pretrained = load_backbone(model, cfg.backbone_path, device)
+    model, criterion, pretrained = build_model(cfg, device)
 
     train_reader = build_reader(cfg, "train", device)
     val_reader = build_reader(cfg, "val", device)
@@ -89,20 +117,7 @@ def main(argv=None):
 
     ckpt_file = os.path.join(cfg.checkpoint_dir, "detr_classifier_checkpoint.pth.tar")
     best_file = os.path.join(cfg.checkpoint_dir, "detr_classifier_model_best.pth.tar")
-    best_prec1 = 0.0
-    start_epoch = cfg.start_epoch
-    if cfg.resume and os.path.isfile(cfg.resume):
-        payload = ckpt.load_checkpoint(cfg.resume, map_location=device)
-        model.load_state_dict(payload["state_dict"])
-        start_epoch = int(payload["epoch"])
-        best_prec1 = float(payload["best_prec1"])
-        if payload["optimizer"] is not None:
-            opt.load_state_dict(payload["optimizer"])
-        taken = optimizers.updates_taken(opt)
-        state.step = start_epoch * len(train_reader) if taken is None else taken
-        print(f"=> resumed from '{cfg.resume}' (epoch {start_epoch}, step {state.step})")
-    elif cfg.resume:
-        print(f"=> no checkpoint found at '{cfg.resume}'")
+    start_epoch, best_prec1 = resume(cfg, state, len(train_reader), device)
 
     def run_validation(stream: int) -> tuple[float, float]:
         top1, top5 = AverageMeter(), AverageMeter()

@@ -5,7 +5,10 @@ into a shared library with a plain C interface, loaded with ``ctypes``. A
 build happens at first use, into ``csrc/build/`` (listed in ``.gitignore``),
 and is reused while the source, the shared ``csrc/*.cuh`` headers, the flags
 and the compiler are unchanged: the library's file name carries a hash of
-all four.
+all four. Where ``csrc/build/`` cannot be created or written (an installed
+package in a read-only ``site-packages``), the libraries go to the user's
+cache, ``$XDG_CACHE_HOME`` or ``~/.cache``, under
+``multimodal_active_ai_tpu_torch/csrc-build/``, with the same file names.
 
 Nothing here runs at import time, so modules that launch kernels import
 cleanly on machines without ``nvcc`` or a GPU.
@@ -59,14 +62,35 @@ def find_nvcc() -> str:
                        "the port's CUDA kernels are built from source at first use")
 
 
-def _target(name: str, nvcc: str) -> tuple[Path, Path]:
+def user_cache_dir() -> Path:
+    """The per-user build directory: ``$XDG_CACHE_HOME`` (else
+    ``~/.cache``) ``/multimodal_active_ai_tpu_torch/csrc-build``."""
+    base = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return Path(base) / "multimodal_active_ai_tpu_torch" / "csrc-build"
+
+
+def build_dir(preferred: Path) -> Path:
+    """``preferred`` (``csrc/build/``), created if needed, or the per-user
+    cache directory where ``preferred`` cannot be created or written."""
+    for directory in (preferred, user_cache_dir()):
+        try:
+            directory.mkdir(parents=True, exist_ok=True)
+        except OSError:
+            continue
+        if os.access(directory, os.W_OK | os.X_OK):
+            return directory
+    raise RuntimeError(f"no writable build directory: neither {preferred} nor "
+                       f"{user_cache_dir()} can be created and written")
+
+
+def _target(name: str, nvcc: str, directory: Path) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):   # shared device code
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     h.update(os.path.realpath(nvcc).encode())
-    return src, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return src, directory / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str]) -> dict[str, Built]:
@@ -75,12 +99,12 @@ def build(names: Sequence[str]) -> dict[str, Built]:
     already built with the same hash are not rebuilt. Raises with the
     compiler's output if any build fails."""
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    directory = build_dir(BUILD_DIR)
     procs = {}
     for name in names:
         if name in _built:
             continue
-        src, lib = _target(name, nvcc)
+        src, lib = _target(name, nvcc, directory)
         log = lib.with_suffix(".log")
         if lib.exists() and log.exists():
             _built[name] = Built(name, lib, log.read_text())

@@ -87,6 +87,22 @@ def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
     return norm
 
 
+def apply_update(state: TrainState, loss: torch.Tensor, clip_max_norm: float) -> torch.Tensor:
+    """One update of the DETR optimizer chain on ``loss``: backward, the
+    global-norm clip over every gradient, each group's StepLR rate, AdamW;
+    ``state.step`` advances by one. Returns the norm before clipping."""
+    model, opt = state.model, state.optimizer
+    model.zero_grad(set_to_none=True)
+    loss.backward()
+    norm = clip_by_global_norm_(model.parameters(), clip_max_norm)
+    factor = state.schedule(state.step)
+    for group in opt.param_groups:
+        group["lr"] = group["base_lr"] * factor
+    opt.step()
+    state.step += 1
+    return norm
+
+
 @torch.no_grad()
 def collect_glimpse_sequence(images: torch.Tensor, retina_cfg: retina.RetinaConfig,
                              num_fixations: int, generator: torch.Generator | None = None,
@@ -135,17 +151,9 @@ def make_detr_train_step(criterion, retina_cfg: retina.RetinaConfig,
         glimpses, sacc, mask = collect_glimpse_sequence(
             images, retina_cfg, num_fixations, generator, saccades=saccades,
             num_fixs=num_fixs)
-        model, opt = state.model, state.optimizer
-        model.train()
-        losses = criterion(model(glimpses, sacc, mask)["pred_logits"], labels)
-        model.zero_grad(set_to_none=True)
-        losses["loss_ce"].backward()
-        norm = clip_by_global_norm_(model.parameters(), clip_max_norm)
-        factor = state.schedule(state.step)
-        for group in opt.param_groups:
-            group["lr"] = group["base_lr"] * factor
-        opt.step()
-        state.step += 1
+        state.model.train()
+        losses = criterion(state.model(glimpses, sacc, mask)["pred_logits"], labels)
+        norm = apply_update(state, losses["loss_ce"], clip_max_norm)
         return {"loss_ce": losses["loss_ce"].detach(),
                 "class_error": losses["class_error"], "grad_norm": norm}
 

@@ -1,4 +1,4 @@
-"""Optimizer construction: sgd / adam / lars / adamw.
+"""Optimizer construction: sgd / adam / lars / adamw / rmsprop.
 
 Port of ``multimodal_active_ai_tpu/train/optimizers.py`` (reference
 ``SimCLR/Model_Util.py:68-88``), with the update arithmetic of the optax
@@ -13,7 +13,12 @@ chains the JAX package builds:
   ``min(1, η·‖p‖ / (‖step‖ + 1e-8))`` when both norms are positive;
 * ``adamw`` (the DETR driver's): ``optax.adamw`` decays every parameter,
   biases and LayerNorm included, by ``lr·wd·p`` on the pre-update value,
-  which is ``torch.optim.AdamW`` with ε = 1e-8.
+  which is ``torch.optim.AdamW`` with ε = 1e-8;
+* ``rmsprop`` (the RLS driver's DQN optimizer): ``optax.rmsprop(lr)``, i.e.
+  ``ν ← 0.9·ν + 0.1·g²`` from ``ν = 0`` and ``p ← p − lr·g·rsqrt(ν + ε)``
+  with ε = 1e-8 **inside** the root, no momentum, no centring
+  (:class:`RMSprop`). ``torch.optim.RMSprop`` differs by default (α = 0.99,
+  ε outside the root).
 
 The learning rate is set per update from the schedule by the trainer
 (:func:`set_learning_rate`), as optax evaluates its schedule per update.
@@ -65,11 +70,38 @@ class LARCAdam(torch.optim.Optimizer):
                 p.add_(update * torch.clamp_max(ratio, 1.0), alpha=-group["lr"])
 
 
+class RMSprop(torch.optim.Optimizer):
+    """optax's ``rmsprop`` (``scale_by_rms`` then the learning rate):
+    ``ν ← decay·ν + (1 − decay)·g²``, ``p ← p − lr·g·rsqrt(ν + ε)``."""
+
+    def __init__(self, params: Iterable, lr: float = 1e-3, decay: float = 0.9,
+                 eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("RMSprop takes no closure")
+        for group in self.param_groups:
+            decay = group["decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    state["nu"] = torch.zeros_like(p)
+                state["step"] += 1
+                nu = state["nu"]
+                nu.mul_(decay).addcmul_(p.grad, p.grad, value=1 - decay)
+                p.add_(p.grad * torch.rsqrt(nu + group["eps"]), alpha=-group["lr"])
+
+
 def get_optimizer(name: str, params: Iterable, momentum: float = 0.9,
                   weight_decay: float = 1e-4) -> torch.optim.Optimizer:
-    """sgd / adam / lars / adamw with the reference's wiring (SGD takes
-    momentum and weight decay, Adam and LARS only the learning rate, AdamW
-    the weight decay). The initial learning rate is 0; the trainer sets it
+    """sgd / adam / lars / adamw / rmsprop with the reference's wiring (SGD
+    takes momentum and weight decay, Adam, LARS and RMSprop only the
+    learning rate, AdamW the weight decay). The initial learning rate is 0; the trainer sets it
     per update."""
     if name == "sgd":
         return torch.optim.SGD(params, lr=0.0, momentum=momentum,
@@ -82,14 +114,14 @@ def get_optimizer(name: str, params: Iterable, momentum: float = 0.9,
         return torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
                                  weight_decay=weight_decay)
     if name == "rmsprop":
-        raise NotImplementedError(
-            "optimizer 'rmsprop' is not ported yet (ROADMAP: the RLS slice)")
+        return RMSprop(params, lr=0.0)
     raise ValueError(f"Unknown optimizer {name}")
 
 
 def updates_taken(optimizer: torch.optim.Optimizer) -> int | None:
-    """The update count an Adam-family optimizer keeps in its state (its
-    ``step``), or None where the state holds none (SGD, or no update yet)."""
+    """The update count an Adam-family or RMSprop optimizer keeps in its
+    state (its ``step``), or None where the state holds none (SGD, or no
+    update yet)."""
     for state in optimizer.state.values():
         if "step" in state:
             return int(state["step"])

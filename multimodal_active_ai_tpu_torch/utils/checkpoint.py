@@ -11,6 +11,8 @@
   layout, and ``norm_kind='bn_fused'``'s ``FusedStatsBatchNorm_k`` slots read
   as the ``BatchNorm_k`` they replace, so every form gives the same
   ``state_dict``.
+* :func:`from_jax_dqn_variables` maps the JAX ``DQN`` (the RLS saccade
+  policy: the same trunk, heads ``g_x``/``g_y``) the same way.
 * :func:`from_jax_probe_variables` and :func:`from_jax_detr_variables` do
   the same for the linear probe and the DETR classifier: the port's copies
   of ``export_torch_classifier_state_dict`` and
@@ -22,8 +24,9 @@
   driver's payload with ``torch.save`` (SimCLR: ``epoch``, ``step``,
   ``state_dict``, ``best_prec1``, ``optimizer``, the loss/top-1/top-5
   histories and ``total_time``; probe and DETR: the reference's four keys
-  ``epoch``, ``state_dict``, ``best_prec1``, ``optimizer``), plus a copy
-  under the best-model name.
+  ``epoch``, ``state_dict``, ``best_prec1``, ``optimizer``; the RLS
+  driver's DQN file: ``epoch``, ``step``, ``policy_state_dict``,
+  ``target_state_dict``), plus a copy under the best-model name.
 """
 
 from __future__ import annotations
@@ -88,13 +91,11 @@ def linear_on_flattened_conv(kernel, chw: tuple[int, int, int]) -> np.ndarray:
         .reshape(out_dim, c * h * w))
 
 
-def from_jax_variables(params: dict, batch_stats: dict) -> "OrderedDict[str, torch.Tensor]":
-    """JAX ``SimCLRModule`` variables → this package's ``state_dict``.
-
-    Values are float32 tensors; ``num_batches_tracked`` is an int64 zero,
-    as the reference torch checkpoints carry it. Either Bottleneck layout
-    and either BatchNorm kind is accepted (their slots are mapped first).
-    """
+def _from_jax_encoder_and_heads(params: dict, batch_stats: dict, heads: tuple[str, ...]
+                                ) -> "OrderedDict[str, torch.Tensor]":
+    """The encoder ``f`` and the ``MLP`` heads named ``heads`` of a JAX
+    module's variables → the port's ``state_dict`` (``f.*``,
+    ``<head>.layers.{0,2}.*``); a head missing from ``params`` is skipped."""
     params, batch_stats = _as_batchnorm_slots(params), _as_batchnorm_slots(batch_stats)
     if is_fused_layout(params):
         params, batch_stats = unfuse_variables(params, batch_stats)
@@ -131,15 +132,35 @@ def from_jax_variables(params: dict, batch_stats: dict) -> "OrderedDict[str, tor
                 _conv_hwio_to_oihw(block_p[convs[-1]]["kernel"]))
             put_bn(prefix + "downsample.1", block_p[bns[-1]], block_s[bns[-1]])
 
-    if "g" in params:
-        g = params["g"]
+    for head in heads:
+        if head not in params:
+            continue
+        g = params[head]
         k0 = np.asarray(g["Dense_0"]["kernel"])
         feat_c = k0.shape[0] // 16      # the encoder's spatial output is 4×4
-        put("g.layers.0.weight", linear_on_flattened_conv(k0, (feat_c, 4, 4)))
-        put("g.layers.0.bias", g["Dense_0"]["bias"])
-        put("g.layers.2.weight", np.asarray(g["Dense_1"]["kernel"]).T)
-        put("g.layers.2.bias", g["Dense_1"]["bias"])
+        put(f"{head}.layers.0.weight", linear_on_flattened_conv(k0, (feat_c, 4, 4)))
+        put(f"{head}.layers.0.bias", g["Dense_0"]["bias"])
+        put(f"{head}.layers.2.weight", np.asarray(g["Dense_1"]["kernel"]).T)
+        put(f"{head}.layers.2.bias", g["Dense_1"]["bias"])
     return sd
+
+
+def from_jax_variables(params: dict, batch_stats: dict) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``SimCLRModule`` variables → this package's ``state_dict``.
+
+    Values are float32 tensors; ``num_batches_tracked`` is an int64 zero,
+    as the reference torch checkpoints carry it. Either Bottleneck layout
+    and either BatchNorm kind is accepted (their slots are mapped first).
+    """
+    return _from_jax_encoder_and_heads(params, batch_stats, ("g",))
+
+
+def from_jax_dqn_variables(params: dict, batch_stats: dict) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``DQN`` variables (``norm_kind='bn'``) → the port DQN's
+    ``state_dict``: the trunk as :func:`from_jax_variables` maps ``f``, and
+    the heads ``g_x``/``g_y`` as it maps ``g`` (each ``Dense_0`` permuted
+    from the NHWC flatten to the C-major one)."""
+    return _from_jax_encoder_and_heads(params, batch_stats, ("g_x", "g_y"))
 
 
 def from_jax_probe_variables(params: dict, num_fixations: int

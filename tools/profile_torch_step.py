@@ -4,8 +4,11 @@
 Builds the port's model, optimizer and train step as a training entry point
 does (``--path simclr``: ``contrastive_learning``; ``probe``:
 ``representation_evaluation``, encoder frozen in eval mode; ``detr``:
-``detr_image_classification`` with its default model, random weights),
-runs warm-up steps, then times ``--steps`` steps with the host clock around
+``detr_image_classification`` with its default model, random weights;
+``rls``: ``detr_image_classification_rls``, that DETR with a ResNet18 DQN,
+A = 100: the rollout with the policy picking every fixation after the first,
+the DETR update, the replay push and a DQN update on 256 replay samples,
+which the driver takes with probability 0.7 a step), runs warm-up steps, then times ``--steps`` steps with the host clock around
 synchronised steps and traces one more with ``torch.profiler``. Prints the
 step time, the traced step's device busy time as a share of the untraced
 median step, device time by kernel group and the top kernels by device
@@ -14,6 +17,7 @@ time, then one JSON line with the same numbers.
     python3 tools/profile_torch_step.py --arch ResNet50 -b 128 -f 10
     python3 tools/profile_torch_step.py --stat-fusion pallas --norm-kind bn_fused
     python3 tools/profile_torch_step.py --path detr -f 2
+    python3 tools/profile_torch_step.py --path rls -f 2
 
 ``--stat-fusion`` and ``--norm-kind`` select the fused BatchNorm
 statistics (the ``conv1x1_stats`` and ``stat_sums`` kernels), as the JAX
@@ -25,6 +29,7 @@ Needs CUDA; it raises without it.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import subprocess
@@ -35,15 +40,18 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
 
+from multimodal_active_ai_tpu_torch.detr_image_classification_rls import push_rollout  # noqa: E402
 from multimodal_active_ai_tpu_torch.device import resolve_device  # noqa: E402
 from multimodal_active_ai_tpu_torch.models.detr import DETR  # noqa: E402
 from multimodal_active_ai_tpu_torch.models.mlp import LogisticRegression  # noqa: E402
+from multimodal_active_ai_tpu_torch.models.qnet import build_dqn  # noqa: E402
 from multimodal_active_ai_tpu_torch.models.resnet import encoder_feature_dim  # noqa: E402
 from multimodal_active_ai_tpu_torch.models.simclr import SimCLRModule  # noqa: E402
 from multimodal_active_ai_tpu_torch.objectives.set_criterion import SetCriterion  # noqa: E402
 from multimodal_active_ai_tpu_torch.ops import retina  # noqa: E402
+from multimodal_active_ai_tpu_torch.rl.replay_memory import ReplayMemory  # noqa: E402
 from multimodal_active_ai_tpu_torch.train import (  # noqa: E402
-    detr_train, eval_probe, optimizers, schedule, simclr_train)
+    detr_train, eval_probe, optimizers, rls_train, schedule, simclr_train)
 
 # kernel-name fragments → group, first match wins
 GROUPS = [
@@ -70,13 +78,45 @@ def group_of(name: str) -> str:
     return "other"
 
 
+def timed(fn, steps: int) -> list[float]:
+    """Host ms of ``steps`` synchronised calls of ``fn``."""
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)
+
+
+def trace(fn):
+    """One traced, synchronised call of ``fn``: its device events (kernels,
+    memsets and copies, without the GPU ranges of user annotations such as
+    "Optimizer.step#Adam.step", which would count time twice), the number
+    of memsets and copies among them (device events but no kernel
+    launches; their number moves with the allocator's state from run to
+    run), the device busy ms and the traced host ms."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    memory_ops = sum(e.name.startswith(("Memset", "Memcpy")) for e in kernels)
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3 if kernels else 0.0
+    return kernels, memory_ops, busy_ms, traced_ms
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="ResNet50")
     ap.add_argument("-b", "--batch-size", type=int, default=128)
-    ap.add_argument("--path", default="simclr", choices=["simclr", "probe", "detr"])
+    ap.add_argument("--path", default="simclr", choices=["simclr", "probe", "detr", "rls"])
     ap.add_argument("-f", "--num-fixations", type=int, default=None,
-                    help="default 10 for simclr, 2 for probe and detr")
+                    help="default 10 for simclr, 2 for probe, detr and rls")
     ap.add_argument("--canvas-size", type=int, default=640)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=20)
@@ -124,37 +164,36 @@ def main(argv=None) -> int:
         state = simclr_train.TrainState(
             model, detr_train.make_detr_optimizer(model, 1e-4, 1e-5, 1e-4),
             detr_train.step_lr(64, 200))
-        detr_step = detr_train.make_detr_train_step(SetCriterion(10, 1000), cfg, f, 0.1)
+        if args.path == "detr":
+            detr_step = detr_train.make_detr_train_step(SetCriterion(10, 1000), cfg, f, 0.1)
 
-        def step(state, images, gen):
-            return detr_step(state, images, labels, gen)
+            def step(state, images, gen):
+                return detr_step(state, images, labels, gen)
+        else:
+            policy = build_dqn("ResNet18", 100, dtype=dtype, generator=seeded)
+            policy = policy.to(device).to(memory_format=torch.channels_last)
+            target = copy.deepcopy(policy)
+            pstate = simclr_train.TrainState(
+                policy, optimizers.get_optimizer("rmsprop", policy.parameters()),
+                lambda _: 1e-4)
+            memory = ReplayMemory(10_000, (30, 30, 12), seed=15, device=device)
+            rls_step = rls_train.make_rls_train_step(SetCriterion(10, 1000), cfg, f, 100, 0.9,
+                                                     0.05, 10.0, 0.1)
+            dqn_update = rls_train.make_dqn_update_step(100, 0.999)
+            host_gen = torch.Generator().manual_seed(0)
+
+            def step(state, images, gen):
+                draws = rls_train.draw_rollout(gen, host_gen, b, f)._replace(coins=(1.0,) * f)
+                _, ro, reward = rls_step(state, policy, images, labels, 1, draws)
+                push_rollout(memory, ro, draws.num_fixs, reward, False)
+                if len(memory) >= 256:
+                    dqn_update(pstate, target, memory.sample(256))
 
     for _ in range(2):                       # warm-up (cuDNN plans, allocator)
         step(state, images, gen)
     torch.cuda.synchronize()
-    times = []
-    for _ in range(args.steps):
-        t0 = time.perf_counter()
-        step(state, images, gen)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        step(state, images, gen)
-        torch.cuda.synchronize()
-        traced_ms = (time.perf_counter() - t0) * 1e3
-
-    # device-side events, without the GPU ranges of user annotations
-    # (e.g. "Optimizer.step#Adam.step"), which would count time twice
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation]
-    # memsets and copies are device events too, but no kernel launches; their
-    # number moves with the allocator's state from run to run
-    memory_ops = sum(e.name.startswith(("Memset", "Memcpy")) for e in kernels)
-    busy_ms = sum(e.device_time_total for e in kernels) / 1e3 if kernels else 0.0
+    times = timed(lambda: step(state, images, gen), args.steps)
+    kernels, memory_ops, busy_ms, traced_ms = trace(lambda: step(state, images, gen))
     by_group: dict[str, float] = {}
     by_name: dict[str, list] = {}
     for e in kernels:
@@ -163,7 +202,6 @@ def main(argv=None) -> int:
         rec = by_name.setdefault(e.name, [0.0, 0])
         rec[0] += ms
         rec[1] += 1
-    times.sort()
     median = times[len(times) // 2]
     print(f"[{gpu}] {args.path} {args.arch} b={b} F={f} canvas {s} "
           f"{'bf16' if args.bf16 else 'f32'} norm {args.norm_kind} stat-fusion "
@@ -179,7 +217,23 @@ def main(argv=None) -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]
     for name, (ms, n) in top:
         print(f"  {ms:9.2f} ms  {n:5d}x  {name[:110]}")
-    print(json.dumps({
+    extra = {}
+    if args.path == "rls":
+        # the DQN update alone, on the same replay memory
+        def update():
+            return dqn_update(pstate, target, memory.sample(256))
+        upd_times = timed(update, args.steps)
+        upd_kernels, upd_memory_ops, upd_busy, _ = trace(update)
+        extra["dqn_update"] = {"step_ms": upd_times[len(upd_times) // 2],
+                               "step_ms_all": upd_times, "device_busy_ms": upd_busy,
+                               "launches": len(upd_kernels) - upd_memory_ops,
+                               "memory_ops": upd_memory_ops}
+        print(f"of which the DQN update alone (ResNet18, b=256): step "
+              f"{extra['dqn_update']['step_ms']:.1f} ms (median of "
+              f"{[round(t, 1) for t in upd_times]}); device busy {upd_busy:.1f} ms; "
+              f"{len(upd_kernels) - upd_memory_ops} kernel launches (+{upd_memory_ops} "
+              f"memsets/copies)")
+    print(json.dumps({**extra,
         "gpu": gpu, "path": args.path, "arch": args.arch, "batch": b, "fixations": f,
         "norm_kind": args.norm_kind, "stat_fusion": args.stat_fusion,
         "step_ms": median, "step_ms_all": times, "traced_step_ms": traced_ms,

@@ -57,6 +57,14 @@ result line):
    step sees every tensor of both checkpoints), and the median RLS train
    step and DQN update. Phase 2 also holds B1 at the RLS plan (R = B =
    128 labeled rows, one fixation) and times it against its bound.
+3f. The caption-probe driver, ``coco_captions_probe.main``, from the same
+   checkpoint: the ResNet-50 encoder float32 and frozen, b=128, F=2, the
+   text tower at its defaults (vocab 32768, d 256, 8 heads, 4 layers, FFN
+   1024, max_len 32), 12 train and 5 eval steps (the driver's ``-t`` cut),
+   then its resume. B1 is launched once a train and an eval step, 17 a run;
+   B2-B4 never; losses and retrieval top-1/5 finite; the encoder unchanged;
+   the resume's first step sees every tensor of both towers; the median
+   caption train step and the peak memory.
 4. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX. It exits non-zero without CUDA, and when the
@@ -1177,6 +1185,136 @@ def run_rls_path(torch, counters, simclr_ck, workdir, device_name):
     return want["glimpse_sample"], rls_ms, dqn_ms, peak_gib
 
 
+def run_caption_path(torch, counters, simclr_ck, workdir, device_name):
+    """Phase 3f: the caption-probe driver from the phase-3 SimCLR checkpoint
+    (ResNet-50 encoder, float32 as in the JAX driver, frozen in eval mode;
+    b=128, F=2, canvas 640; the text tower at its defaults: vocab 32768,
+    d 256, 8 heads, 4 layers, FFN 1024, max_len 32, out 128; the image head
+    65,536 -> 1024 -> 128), then its resume. Each run: launches (B1 once a
+    train and an eval step, B2-B4 never), finite losses and retrieval
+    metrics, the encoder unchanged; the resume's first step sees every
+    tensor of both towers (Adam fresh). Returns the B1 launches of a run,
+    the median caption train step and the peak memory."""
+    import contextlib
+    import io
+    import re
+    from multimodal_active_ai_tpu_torch import coco_captions_probe as cap_driver
+    from multimodal_active_ai_tpu_torch.config import CaptionProbeConfig, parse_into
+    from multimodal_active_ai_tpu_torch.models.simclr import SimCLRModule
+    from multimodal_active_ai_tpu_torch.ops import retina
+    from multimodal_active_ai_tpu_torch.train import caption_probe
+    from multimodal_active_ai_tpu_torch.utils import checkpoint
+
+    f = PROBE_FIXATIONS
+    ckdir = os.path.join(workdir, "captions")
+    ck = os.path.join(ckdir, "caption_probe_checkpoint.pth.tar")
+    argv = [simclr_ck, "--dataset", "synthetic", "-a", ARCH, "-b", str(BATCH), "-f", str(f),
+            "--canvas-size", str(CANVAS), "-t", "--epochs", "1", "--checkpoint-dir", ckdir,
+            "-p", "1"]
+    cfg = parse_into(CaptionProbeConfig, argv)
+    batches = math.ceil((cfg.num_examples or 16 * BATCH) / BATCH)
+    train_steps, eval_steps = cap_driver.loop_steps(cfg.test, batches)
+    want = {"glimpse_sample": train_steps + eval_steps, "stat_sums": 0, "conv1x1_stats": 0,
+            "hat_sample": 0}
+    seen = {}
+    make = caption_probe.make_caption_probe_train_step
+
+    def spy(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def first(state, encoder, *rest):
+            if not seen:
+                seen.update(towers={k: v.clone() for k, v in state.model.state_dict().items()},
+                            encoder=encoder, step=state.step, opt=len(state.optimizer.state),
+                            frozen={k: v.clone() for k, v in encoder.state_dict().items()})
+            return step(state, encoder, *rest)
+        return first
+
+    def run(extra, label):
+        seen.clear()
+        reset_counts(counters.values())
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        caption_probe.make_caption_probe_train_step = spy
+        try:
+            with contextlib.redirect_stdout(out):
+                state, _ = cap_driver.main(argv + extra)
+        finally:
+            caption_probe.make_caption_probe_train_step = make
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log = out.getvalue()
+        got = {k: c.launches for k, c in counters.items()}
+        losses = [float(x) for x in re.findall(r"Loss (\S+) ", log)]
+        top = {k: float(v) for k, v in re.findall(r"##(\S+ Top-\d) (\S+)", log)}
+        print(f"caption {label}: {train_steps} train + {eval_steps} eval steps (F={f}); "
+              f"launches {got} (expected {want}); losses {[round(x, 4) for x in losses]}; "
+              f"retrieval {top}; wall {wall:.2f} s incl. first-call set-up")
+        if got != want:
+            fail(f"caption {label} launches {got}, expected {want}")
+        if state.step != train_steps or len(losses) != train_steps or not all(
+                math.isfinite(x) for x in losses):
+            fail(f"caption {label}: {state.step} updates, losses {losses}")
+        if sorted(top) != ["I2T Top-1", "I2T Top-5", "T2I Top-1", "T2I Top-5"] or not all(
+                0 <= v <= 1 for v in top.values()):
+            fail(f"caption {label}: retrieval lines {top}")
+        now = seen["encoder"].state_dict()
+        if not all(torch.equal(now[k], v) for k, v in seen["frozen"].items()):
+            fail(f"caption {label}: the frozen encoder changed")
+        payload = checkpoint.load_checkpoint(ck, "cuda")
+        if sorted(payload) != ["epoch", "state_dict", "vocab_size"] or payload["epoch"] != 1 \
+                or payload["vocab_size"] != cfg.vocab_size:
+            fail(f"caption {label} checkpoint {sorted(payload)}, epoch {payload.get('epoch')}")
+        if not all(bool(torch.isfinite(v).all()) for v in payload["state_dict"].values()):
+            fail(f"caption {label} checkpoint holds non-finite weights")
+        return state, payload
+
+    gc.collect()
+    torch.cuda.synchronize()
+    held_gib = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    state, payload = run([], "run")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    simclr_f = checkpoint.encoder_state_dict(checkpoint.load_checkpoint(simclr_ck, "cuda")[
+        "state_dict"])
+    enc = seen["encoder"].f.state_dict()
+    if not all(torch.equal(enc[k], v) for k, v in simclr_f.items()):
+        fail("the caption encoder is not the SimCLR checkpoint's")
+    print(f"caption: encoder f = the SimCLR checkpoint's ({len(simclr_f)} tensors) and "
+          f"unchanged by training; checkpoint keys {sorted(payload)}, vocab_size "
+          f"{payload['vocab_size']}")
+
+    run(["--resume", ck], "resume")
+    sd = payload["state_dict"]
+    if seen["step"] != 0 or seen["opt"] != 0 or sorted(seen["towers"]) != sorted(sd) or not all(
+            torch.equal(seen["towers"][k], v) for k, v in sd.items()):
+        fail("the caption resume did not restore every tensor of both towers")
+    print(f"caption resume: the first step saw all {len(sd)} tensors of both towers bit for "
+          f"bit, vocab_size {payload['vocab_size']}, Adam fresh (step {seen['step']})")
+
+    dev = torch.device("cuda")
+    encoder = SimCLRModule(ARCH).to(dev).to(memory_format=torch.channels_last)
+    encoder.f.load_state_dict(simclr_f)
+    step = caption_probe.make_caption_probe_train_step(retina.RetinaConfig(canvas_size=CANVAS), f,
+                                                       cfg.temperature)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    images = torch.randint(0, 256, (BATCH, CANVAS, CANVAS, 3), generator=gen,
+                           dtype=torch.uint8, device=dev)
+    labels = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
+    tokens = cap_driver.caption_tokens(labels, cfg.vocab_size, cfg.max_len)
+
+    def train_step():
+        if not math.isfinite(float(step(state, encoder, images, tokens, gen)["loss"])):
+            fail("non-finite caption loss")
+
+    ms = median_step_ms(torch, train_step, "caption", device_name, f, steps=9,
+                        what=f"{ARCH} float32 encoder, b={BATCH}, F={f}, canvas {CANVAS}; "
+                             "text tower d 256, 4 layers, vocab 32768, L 32")
+    print(f"caption peak memory {peak_gib:.2f} GiB in the driver run ({held_gib:.2f} GiB of it "
+          f"held before it) [{device_name}]")
+    return want["glimpse_sample"], ms, peak_gib
+
+
 def run_stat_fusion_paths(torch, counters, driver, ckpt_mod, device_name):
     """Phase 3b: the driver with ``--stat-fusion pallas`` (3 train steps +
     validation, then a resume), and train steps of the ``bn_fused`` +
@@ -1295,8 +1433,8 @@ def main() -> int:
     check_odd_rows(torch, counters)
 
     # phase 3: the main path (norm 'bn'); 3b: the fused-statistics paths;
-    # 3c, 3d and 3e: the probe, DETR and RLS drivers from the phase-3
-    # checkpoint
+    # 3c, 3d, 3e and 3f: the probe, DETR, RLS and caption drivers from the
+    # phase-3 checkpoint
     workdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         rows["glimpse_sample"]["launches"], bn_ms, simclr_ck = run_main_path(
@@ -1308,6 +1446,11 @@ def main() -> int:
                                                device_name)
         rls_launches, rls_ms, dqn_ms, rls_peak = run_rls_path(torch, counters, simclr_ck,
                                                               workdir, device_name)
+        t3f = time.perf_counter()
+        cap_launches, cap_ms, cap_peak = run_caption_path(torch, counters, simclr_ck, workdir,
+                                                          device_name)
+        print(f"phase 3f (caption driver, its resume and 9 timed steps): "
+              f"{time.perf_counter() - t3f:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     rows["conv1x1_stats"]["launches"] = fused["conv1x1_stats"]
@@ -1324,6 +1467,11 @@ def main() -> int:
           f"canvas {CANVAS}, bf16): {rls_ms:.1f} ms ({BATCH / rls_ms * 1e3:.1f} img/s), DQN "
           f"update (b=256) {dqn_ms:.1f} ms, peak memory {rls_peak:.2f} GiB; glimpse_sample "
           f"launches {rls_launches} a 3 + 1-step run [{device_name}]")
+
+    print(f"median caption train step ({ARCH} float32 encoder, b={BATCH}, F={PROBE_FIXATIONS}, "
+          f"canvas {CANVAS}; text tower at its defaults): {cap_ms:.1f} ms "
+          f"({BATCH / cap_ms * 1e3:.1f} img/s), peak memory {cap_peak:.2f} GiB; glimpse_sample "
+          f"launches {cap_launches} a driver run [{device_name}]")
 
     # phase 4: results
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -2,10 +2,11 @@
 
 The port's own copy of ``multimodal_active_ai_tpu/config.py``
 (``ContrastiveConfig``, ``EvalConfig``, ``DETRConfig``, ``RLSConfig``,
-``add_args_from_dataclass``, ``parse_into``): the same flag names and
-defaults, the reference's underscore flags included (``--enc_layers``,
-``--lr_backbone``, ``--clip_max_norm``), so a JAX command line runs here
-unchanged, plus ``--device``. Flags whose feature has not been ported raise
+``add_args_from_dataclass``, ``parse_into``) and of the ``CaptionProbeConfig``
+of its ``coco_captions_probe.py``: the same flag names and defaults, the
+reference's underscore flags included (``--enc_layers``, ``--lr_backbone``,
+``--clip_max_norm``), so a JAX command line runs here unchanged, plus
+``--device``. Flags whose feature has not been ported raise
 ``NotImplementedError`` in the drivers (:func:`check_ported`), naming the
 ROADMAP item. The file readers' own flags (``-j``, ``--device-prefetch``)
 have no effect with ``--dataset synthetic``, as in the JAX drivers.
@@ -227,19 +228,53 @@ class RLSConfig(DETRConfig):
                                     "pair, RLS :757-769)")
 
 
+@dataclass
+class CaptionProbeConfig:
+    """``coco_captions_probe.py``'s flags (the JAX package's caption probe,
+    which has no reference CLI), plus ``--device``."""
+
+    model: str = _flag("model", default=None, positional=True,
+                       help="pretrained SimCLR checkpoint")
+    data: str = _flag("data", default=None, positional=True)
+    arch: str = _flag("--arch", "-a", default="ResNet18", choices=MODEL_NAMES)
+    dataset: str = _flag("--dataset", default="mscoco",
+                         choices=["mscoco", "synthetic", "imagefolder"])
+    batch_size: int = _flag("-b", "--batch-size", default=64)
+    num_fixations: int = _flag("-f", "--num-fixations", default=2)
+    epochs: int = _flag("--epochs", default=5)
+    lr: float = _flag("--lr", default=1e-4)
+    temperature: float = _flag("--temperature", default=0.05)
+    max_len: int = _flag("--max-len", default=32)
+    vocab_size: int = _flag("--vocab-size", default=32768)
+    print_freq: int = _flag("--print-freq", "-p", default=10)
+    workers: int = _flag("-j", "--workers", default=4)
+    canvas_size: int = _flag("--canvas-size", default=640)
+    seed: int = _flag("--seed", default=15)
+    test: bool = _flag("-t", "--test", default=False, action="store_true")
+    verbose: bool = _flag("-v", "--verbose", default=False, action="store_true")
+    num_examples: int = _flag("--num-examples", default=0)
+    checkpoint_dir: str = _flag("--checkpoint-dir", default=".")
+    resume: str = _flag("--resume", default="")
+    canvas_cache: str = _flag("--canvas-cache", default="",
+                              help="decode-once canvas cache directory "
+                                   "(not ported: raises)")
+    device: str = _flag("--device", default="cuda",
+                        help="'cuda' (default; raises if absent) or 'cpu'")
+
+
 def check_ported(cfg) -> None:
     """Refuse every flag value of a driver config whose feature is not
     ported yet, naming the ROADMAP item."""
     if cfg.dataset != "synthetic":
         raise NotImplementedError(
-            f"--dataset {cfg.dataset} is not ported yet (ROADMAP: HostLoader, "
+            f"--dataset {cfg.dataset} is not ported yet (ROADMAP A4: HostLoader, "
             "the readers and an image decoder); use --dataset synthetic")
-    if cfg.multislice:
+    if getattr(cfg, "multislice", False):
         raise NotImplementedError(
-            "--multislice is not ported yet (ROADMAP: multi-GPU, DDP/SyncBN)")
+            "--multislice is not ported yet (ROADMAP A6: multi-GPU, DDP/SyncBN)")
     if cfg.canvas_cache:
         raise NotImplementedError(
-            "--canvas-cache is not ported yet (ROADMAP: HostLoader and the readers)")
+            "--canvas-cache is not ported yet (ROADMAP A4: HostLoader and the readers)")
     if getattr(cfg, "unroll_fixations", 0) != 0:
         raise NotImplementedError(
             "--unroll-fixations tunes the JAX scan; the eager fixation loop "

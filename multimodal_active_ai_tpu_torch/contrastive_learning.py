@@ -117,7 +117,7 @@ def main(argv=None):
     if cfg.resume:
         if os.path.isfile(cfg.resume):
             print(f"=> loading checkpoint '{cfg.resume}'")
-            payload = ckpt.load_checkpoint(cfg.resume, map_location=device)
+            payload = ckpt.load_resume(cfg.resume, map_location=device)
             model.load_state_dict(payload["state_dict"])
             opt.load_state_dict(payload["optimizer"])
             state.step = int(payload["step"])

@@ -12,7 +12,8 @@ it as::
         /tmp/ckpt/checkpoint.pth.tar --dataset synthetic --backbone ResNet50 \\
         -b 128 -f 2 --epochs 1 -t --num-examples 384 --checkpoint-dir /tmp/detr
 
-The positional ``backbone_path`` is a SimCLR ``.pth.tar``; without one the
+The positional ``backbone_path`` is a SimCLR ``.pth.tar`` (the port's or
+the reference's) or the JAX package's SimCLR ``.msgpack``; without one the
 run starts from scratch (every parameter trains at ``--lr``; use
 ``--backbone-norm group``, since FrozenBatchNorm with initial statistics
 normalises nothing). ``--backbone-norm group`` with a checkpoint raises.
@@ -22,7 +23,8 @@ and ``detr_classifier_model_best.pth.tar`` in ``--checkpoint-dir``, in the
 reference's four-key schema; ``--resume`` takes one of them (or an
 ``--export-torch`` file, whose optimizer state is empty), ``-e`` only
 validates, and ``--export-torch`` writes the model's ``state_dict``, which
-is the reference ``detr_CLA`` layout.
+is the reference ``detr_CLA`` layout. ``--resume`` of a JAX checkpoint
+raises (its optax state is not carried yet).
 
 Not ported yet, and raising with the ROADMAP item: ``--dataset
 imagenet/mscoco``, ``--multislice``, ``--canvas-cache``.
@@ -56,7 +58,7 @@ def load_backbone(model: detr_models.DETR, path: str, device: torch.device) -> b
         return False
     print(f"=> loading pretrained backbone '{path}'")
     payload = ckpt.load_checkpoint(path, map_location=device)
-    ckpt.load_simclr_backbone(model.body, payload.get("state_dict", payload))
+    ckpt.load_simclr_backbone(model.body, ckpt.simclr_state_dict(payload))
     print(f"=> loaded pretrained backbone '{path}'")
     return True
 
@@ -81,7 +83,7 @@ def resume(cfg, state: TrainState, steps_per_epoch: int,
     steps_per_epoch``); returns ``(start_epoch, best_prec1)``, the config's
     ``start_epoch`` and 0 when there is nothing to resume."""
     if cfg.resume and os.path.isfile(cfg.resume):
-        payload = ckpt.load_checkpoint(cfg.resume, map_location=device)
+        payload = ckpt.load_resume(cfg.resume, map_location=device)
         state.model.load_state_dict(payload["state_dict"])
         start_epoch = int(payload["epoch"])
         if payload["optimizer"] is not None:

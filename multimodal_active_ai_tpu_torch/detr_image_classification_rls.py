@@ -119,7 +119,7 @@ def main(argv=None):
     dqn_file = os.path.join(cfg.checkpoint_dir, "dqn_checkpoint.pth.tar")
     start_epoch, best_prec1 = resume(cfg, state, len(train_reader), device)
     if cfg.dqn_resume and os.path.isfile(cfg.dqn_resume):
-        payload = ckpt.load_checkpoint(cfg.dqn_resume, map_location=device)
+        payload = ckpt.load_resume(cfg.dqn_resume, map_location=device)
         policy.load_state_dict(payload["policy_state_dict"])
         target.load_state_dict(payload["target_state_dict"])
         policy_state.step = int(payload["step"])

@@ -59,9 +59,12 @@ class MultiheadAttention(nn.Module):
         dense_init_(self.out_proj, generator)
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                key_padding_mask: torch.Tensor | None = None) -> torch.Tensor:
+                key_padding_mask: torch.Tensor | None = None,
+                attn_mask: torch.Tensor | None = None) -> torch.Tensor:
         """``q`` ``(B, Sq, d)``, ``k``/``v`` ``(B, Sk, d)``; ``key_padding_mask``
-        ``(B, Sk)`` bool, True on padded keys."""
+        ``(B, Sk)`` bool, True on padded keys; ``attn_mask`` a bool keep-mask
+        (True = attend, flax's ``mask``) that broadcasts to ``(B, h, Sq, Sk)``,
+        such as a causal ``(Sq, Sk)`` lower triangle."""
         d = q.shape[-1]
         h = self.nhead
         w, b = self.in_proj_weight, self.in_proj_bias
@@ -75,6 +78,8 @@ class MultiheadAttention(nn.Module):
         if key_padding_mask is not None:
             logits = logits.masked_fill(key_padding_mask[:, None, None, :],
                                         torch.finfo(logits.dtype).min)
+        if attn_mask is not None:
+            logits = logits.masked_fill(~attn_mask, torch.finfo(logits.dtype).min)
         weights = torch.softmax(logits.float(), dim=-1).to(logits.dtype)
         weights = F.dropout(weights, self.dropout, self.training)
         out = (weights @ heads(v, 2)).transpose(1, 2).reshape(q.shape[0], q.shape[1], d)

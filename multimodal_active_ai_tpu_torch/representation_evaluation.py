@@ -12,7 +12,9 @@ logistic-regression probe is trained with cross-entropy and validated
         -b 128 -f 2 --epochs 1 -t --num-examples 384 --checkpoint-dir /tmp/probe
 
 The positional ``model`` is a SimCLR ``.pth.tar`` written by the port's
-``contrastive_learning`` (or the reference); ``g.*`` is dropped. Without
+``contrastive_learning`` (or the reference), or a SimCLR ``.msgpack``
+written by the JAX package (either Bottleneck layout, either BatchNorm
+kind); ``g.*`` is dropped. Without
 one the encoder keeps its random initialisation. It runs on ``--device
 cuda`` (the default; it raises if CUDA is absent) or ``--device cpu``.
 Checkpoints are ``classifier_checkpoint.pth.tar`` and
@@ -21,7 +23,8 @@ reference's four-key schema (``epoch``, ``state_dict``, ``best_prec1``,
 ``optimizer``); ``--resume`` takes one of them (or an ``--export-torch``
 file, whose optimizer state is empty, so the moments restart), ``-e`` only
 validates, and ``--export-torch`` writes the probe's ``state_dict``, which
-is the reference layout.
+is the reference layout. ``--resume`` of a JAX checkpoint raises
+(its optax state is not carried yet).
 
 Not ported yet, and raising with the ROADMAP item: ``--dataset
 imagenet/mscoco``, ``--multislice``, ``--canvas-cache``.
@@ -58,7 +61,7 @@ def load_pretrained_encoder(encoder: SimCLRModule, path: str,
         return False
     print(f"=> loading checkpoint '{path}'")
     payload = ckpt.load_checkpoint(path, map_location=device)
-    encoder.f.load_state_dict(ckpt.encoder_state_dict(payload.get("state_dict", payload)))
+    encoder.f.load_state_dict(ckpt.encoder_state_dict(ckpt.simclr_state_dict(payload)))
     print(f"=> loaded pretrained model '{path}'")
     return True
 
@@ -102,7 +105,7 @@ def main(argv=None):
     best_prec1 = 0.0
     start_epoch = cfg.start_epoch
     if cfg.resume and os.path.isfile(cfg.resume):
-        payload = ckpt.load_checkpoint(cfg.resume, map_location=device)
+        payload = ckpt.load_resume(cfg.resume, map_location=device)
         probe.load_state_dict(payload["state_dict"])
         start_epoch = int(payload["epoch"])
         best_prec1 = float(payload["best_prec1"])

@@ -18,6 +18,10 @@
   of ``export_torch_classifier_state_dict`` and
   ``export_torch_detr_state_dict`` (the reference ``linear.*`` and
   ``detr_CLA`` layouts, which are the port's ``state_dict``s).
+* :func:`from_jax_text_variables`, :func:`from_jax_captioner_variables`
+  and :func:`from_jax_caption_variables` do the same for the text tower,
+  the caption decoder and the caption probe's two towers (its image head
+  permuted per fixation block, as the probe's kernel is).
 * :func:`load_simclr_backbone` puts a SimCLR ``state_dict``'s encoder ``f``
   into a DETR backbone with FrozenBatchNorm buffers.
 * :func:`save_checkpoint` / :func:`load_checkpoint` write and read a
@@ -26,7 +30,12 @@
   histories and ``total_time``; probe and DETR: the reference's four keys
   ``epoch``, ``state_dict``, ``best_prec1``, ``optimizer``; the RLS
   driver's DQN file: ``epoch``, ``step``, ``policy_state_dict``,
-  ``target_state_dict``), plus a copy under the best-model name.
+  ``target_state_dict``; the caption probe: ``epoch``, ``state_dict``,
+  ``vocab_size`` and ``vocab_words_u8``), plus a copy under the best-model
+  name. :func:`load_checkpoint` also reads the JAX package's flax msgpack
+  files (:mod:`~multimodal_active_ai_tpu_torch.utils.flax_msgpack`), and
+  :func:`simclr_state_dict` turns a JAX SimCLR payload into this
+  package's ``state_dict``.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import torch
 
 from multimodal_active_ai_tpu_torch.models.conv_bn import is_fused_layout, unfuse_variables
 from multimodal_active_ai_tpu_torch.models.norm import FrozenBatchNorm
+from multimodal_active_ai_tpu_torch.utils import flax_msgpack
 
 
 def _conv_hwio_to_oihw(k) -> np.ndarray:
@@ -51,7 +61,7 @@ def _sorted_slots(tree: dict, prefix: str) -> list[str]:
     """Traced flax submodule slots (``Conv_0``, ``BatchNorm_1``, ...) in
     trace order."""
     return sorted([k for k in tree if k.startswith(prefix)],
-                  key=lambda s: int(s.split("_")[1]))
+                  key=lambda s: int(s.rsplit("_", 1)[1]))
 
 
 def _has_downsample(block_p: dict, convs: list[str]) -> bool:
@@ -163,20 +173,27 @@ def from_jax_dqn_variables(params: dict, batch_stats: dict) -> "OrderedDict[str,
     return _from_jax_encoder_and_heads(params, batch_stats, ("g_x", "g_y"))
 
 
+def _per_fixation_kernel(kernel, num_fixations: int, what: str) -> np.ndarray:
+    """A flax Dense kernel ``(F·16·C, out)`` over ``F`` concatenated NHWC
+    feature blocks → the torch weight ``(out, F·C·16)`` over C-major
+    blocks (each block permuted as :func:`linear_on_flattened_conv` does)."""
+    kernel = np.asarray(kernel)
+    per_fix = kernel.shape[0] // num_fixations
+    if per_fix * num_fixations != kernel.shape[0] or per_fix % 16:
+        raise ValueError(f"{what} kernel {kernel.shape} does not split into "
+                         f"{num_fixations} blocks of 16·C rows")
+    return np.concatenate([linear_on_flattened_conv(kernel[f * per_fix:(f + 1) * per_fix],
+                                                    (per_fix // 16, 4, 4))
+                           for f in range(num_fixations)], axis=1)
+
+
 def from_jax_probe_variables(params: dict, num_fixations: int
                              ) -> "OrderedDict[str, torch.Tensor]":
     """JAX ``LogisticRegression`` params → the probe's ``state_dict``
     (``linear.weight`` ``(out, F·C·16)``, ``linear.bias``): each fixation's
     block of the kernel is permuted from the NHWC flatten to the C-major
     one."""
-    kernel = np.asarray(params["Dense_0"]["kernel"])          # (F·16·C, out)
-    per_fix = kernel.shape[0] // num_fixations
-    if per_fix * num_fixations != kernel.shape[0] or per_fix % 16:
-        raise ValueError(f"probe kernel {kernel.shape} does not split into "
-                         f"{num_fixations} blocks of 16·C rows")
-    w = np.concatenate([linear_on_flattened_conv(kernel[f * per_fix:(f + 1) * per_fix],
-                                                 (per_fix // 16, 4, 4))
-                        for f in range(num_fixations)], axis=1)
+    w = _per_fixation_kernel(params["Dense_0"]["kernel"], num_fixations, "probe")
     return OrderedDict([("linear.weight", torch.from_numpy(w.astype(np.float32))),
                         ("linear.bias", torch.from_numpy(
                             np.array(params["Dense_0"]["bias"], np.float32)))])
@@ -197,39 +214,103 @@ def _mha_from_flax(tree: dict) -> dict[str, np.ndarray]:
     }
 
 
+def _f32(value) -> torch.Tensor:
+    return torch.from_numpy(np.array(value, dtype=np.float32))
+
+
+def _put_dense(sd: dict, key: str, dense: dict) -> None:
+    sd[key + ".weight"] = _f32(np.asarray(dense["kernel"]).T)
+    sd[key + ".bias"] = _f32(dense["bias"])
+
+
+def _put_layer(sd: dict, layer: dict, prefix: str, attns, n_norms: int) -> None:
+    """One flax transformer layer into ``sd`` under ``prefix``: each
+    attention of ``attns`` (``(path of slots, torch name)``), ``Dense_0/1``
+    ↔ ``linear1/2`` and ``LayerNorm_k`` ↔ ``norm{k+1}``."""
+    for path, name in attns:
+        tree = layer
+        for slot in path:
+            tree = tree[slot]
+        for key, v in _mha_from_flax(tree).items():
+            sd[f"{prefix}.{name}.{key}"] = _f32(v)
+    for j in (0, 1):
+        _put_dense(sd, f"{prefix}.linear{j + 1}", layer[f"Dense_{j}"])
+    for n in range(n_norms):
+        sd[f"{prefix}.norm{n + 1}.weight"] = _f32(layer[f"LayerNorm_{n}"]["scale"])
+        sd[f"{prefix}.norm{n + 1}.bias"] = _f32(layer[f"LayerNorm_{n}"]["bias"])
+
+
+_ENCODER_ATTN = [(("_MHA_0", "MultiHeadDotProductAttention_0"), "self_attn")]
+
+
 def from_jax_transformer_variables(tr: dict) -> "OrderedDict[str, torch.Tensor]":
     """JAX ``Transformer`` params → the port's ``Transformer`` ``state_dict``
     (flax tracing order: ``Dense_0/1`` ↔ ``linear1/2``, ``LayerNorm_k`` ↔
     ``norm{k+1}``, ``_MHA_0/1`` ↔ ``self_attn``/``multihead_attn``; the
     pre-norm encoder's final ``LayerNorm_0`` ↔ ``encoder.norm``)."""
     sd: OrderedDict[str, torch.Tensor] = OrderedDict()
-
-    def put(key, value):
-        sd[key] = torch.from_numpy(np.array(value, dtype=np.float32))
-
-    def put_layer(layer, prefix, attns, n_norms):
-        for slot, name in attns:
-            for key, v in _mha_from_flax(layer[slot]["MultiHeadDotProductAttention_0"]).items():
-                put(f"{prefix}.{name}.{key}", v)
-        for j in (0, 1):
-            put(f"{prefix}.linear{j + 1}.weight", np.asarray(layer[f"Dense_{j}"]["kernel"]).T)
-            put(f"{prefix}.linear{j + 1}.bias", layer[f"Dense_{j}"]["bias"])
-        for n in range(n_norms):
-            put(f"{prefix}.norm{n + 1}.weight", layer[f"LayerNorm_{n}"]["scale"])
-            put(f"{prefix}.norm{n + 1}.bias", layer[f"LayerNorm_{n}"]["bias"])
-
     for name in tr:
         i = name.split("_")[-1]
         if name.startswith("TransformerEncoderLayer_"):
-            put_layer(tr[name], f"encoder.layers.{i}", [("_MHA_0", "self_attn")], 2)
+            _put_layer(sd, tr[name], f"encoder.layers.{i}", _ENCODER_ATTN, 2)
         elif name.startswith("TransformerDecoderLayer_"):
-            put_layer(tr[name], f"decoder.layers.{i}",
-                      [("_MHA_0", "self_attn"), ("_MHA_1", "multihead_attn")], 3)
-    put("decoder.norm.weight", tr["decoder_norm"]["scale"])
-    put("decoder.norm.bias", tr["decoder_norm"]["bias"])
+            _put_layer(sd, tr[name], f"decoder.layers.{i}",
+                       _ENCODER_ATTN + [(("_MHA_1", "MultiHeadDotProductAttention_0"),
+                                         "multihead_attn")], 3)
+    sd["decoder.norm.weight"] = _f32(tr["decoder_norm"]["scale"])
+    sd["decoder.norm.bias"] = _f32(tr["decoder_norm"]["bias"])
     if "LayerNorm_0" in tr:
-        put("encoder.norm.weight", tr["LayerNorm_0"]["scale"])
-        put("encoder.norm.bias", tr["LayerNorm_0"]["bias"])
+        sd["encoder.norm.weight"] = _f32(tr["LayerNorm_0"]["scale"])
+        sd["encoder.norm.bias"] = _f32(tr["LayerNorm_0"]["bias"])
+    return sd
+
+
+def from_jax_text_variables(params: dict) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``TextEncoder`` params → the port's ``TextEncoder`` ``state_dict``:
+    ``Embed_0`` ↔ ``embed`` (passed straight through), each
+    ``TransformerEncoderLayer_i`` ↔ ``layers.i``, the top ``Dense_0`` ↔
+    ``proj``."""
+    sd: OrderedDict[str, torch.Tensor] = OrderedDict()
+    sd["embed.weight"] = _f32(params["Embed_0"]["embedding"])
+    for name in _sorted_slots(params, "TransformerEncoderLayer_"):
+        _put_layer(sd, params[name], f"layers.{name.split('_')[-1]}", _ENCODER_ATTN, 2)
+    _put_dense(sd, "proj", params["Dense_0"])
+    return sd
+
+
+def from_jax_captioner_variables(params: dict) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``GlimpseCaptioner`` params → the port's ``state_dict``:
+    ``Dense_0`` ↔ ``memory_proj``, ``Embed_0`` ↔ ``embed``, each
+    ``_CausalDecoderLayer_i`` ↔ ``layers.i`` (its attentions
+    ``MultiHeadDotProductAttention_0/1`` ↔ ``self_attn``/``multihead_attn``),
+    ``LayerNorm_0`` ↔ ``norm`` and ``Dense_1`` ↔ ``head``."""
+    sd: OrderedDict[str, torch.Tensor] = OrderedDict()
+    _put_dense(sd, "memory_proj", params["Dense_0"])
+    sd["embed.weight"] = _f32(params["Embed_0"]["embedding"])
+    for name in _sorted_slots(params, "_CausalDecoderLayer_"):
+        _put_layer(sd, params[name], f"layers.{name.split('_')[-1]}",
+                   [(("MultiHeadDotProductAttention_0",), "self_attn"),
+                    (("MultiHeadDotProductAttention_1",), "multihead_attn")], 3)
+    sd["norm.weight"] = _f32(params["LayerNorm_0"]["scale"])
+    sd["norm.bias"] = _f32(params["LayerNorm_0"]["bias"])
+    _put_dense(sd, "head", params["Dense_1"])
+    return sd
+
+
+def from_jax_caption_variables(params: dict, num_fixations: int
+                               ) -> "OrderedDict[str, torch.Tensor]":
+    """The JAX caption probe's ``{"image_head", "text"}`` params → the port's
+    ``CaptionTowers`` ``state_dict``: ``image_head.layers.{0,2}.*`` (the
+    head's ``Dense_0`` permuted per fixation block from the NHWC flatten to
+    the C-major one) and ``text.*`` (:func:`from_jax_text_variables`)."""
+    head = params["image_head"]
+    sd: OrderedDict[str, torch.Tensor] = OrderedDict()
+    sd["image_head.layers.0.weight"] = _f32(
+        _per_fixation_kernel(head["Dense_0"]["kernel"], num_fixations, "image head"))
+    sd["image_head.layers.0.bias"] = _f32(head["Dense_0"]["bias"])
+    _put_dense(sd, "image_head.layers.2", head["Dense_1"])
+    for key, value in from_jax_text_variables(params["text"]).items():
+        sd["text." + key] = value
     return sd
 
 
@@ -325,7 +406,45 @@ def save_checkpoint(payload: dict[str, Any], is_best: bool,
         shutil.copyfile(filename, best_filename)
 
 
+_ZIP_MAGIC = b"PK\x03\x04"
+
+
+def is_torch_file(filename: str) -> bool:
+    """Whether ``filename`` is a ``torch.save`` file (a zip archive) rather
+    than a flax msgpack checkpoint of the JAX package."""
+    with open(filename, "rb") as f:
+        return f.read(4) == _ZIP_MAGIC
+
+
 def load_checkpoint(filename: str, map_location: torch.device | str = "cpu") -> dict:
     """Read a payload written by :func:`save_checkpoint` (tensors, numbers,
-    lists and dicts only: loaded with ``weights_only=True``)."""
-    return torch.load(filename, map_location=map_location, weights_only=True)
+    lists and dicts only: loaded with ``weights_only=True``) or a JAX
+    package checkpoint (flax msgpack, told apart by its first bytes; its
+    tree of numpy arrays comes back as flax restores it)."""
+    if is_torch_file(filename):
+        return torch.load(filename, map_location=map_location, weights_only=True)
+    return flax_msgpack.read_file(filename)
+
+
+def load_resume(filename: str, map_location: torch.device | str = "cpu") -> dict:
+    """A driver's own ``--resume`` payload. A JAX package checkpoint raises:
+    its optimizer state is optax's, and carrying it into a torch optimizer
+    is not ported yet (ROADMAP A5)."""
+    if not is_torch_file(filename):
+        raise NotImplementedError(
+            f"'{filename}' is a JAX package (flax msgpack) checkpoint; resuming from "
+            "one needs its optax optimizer state in torch form, which is not ported "
+            "yet (ROADMAP A5)")
+    return load_checkpoint(filename, map_location)
+
+
+def simclr_state_dict(payload: dict) -> "OrderedDict[str, torch.Tensor]":
+    """The port-layout SimCLR ``state_dict`` of a loaded checkpoint: a
+    torch payload's ``state_dict`` (or the payload itself), or a JAX
+    payload's ``state_dict: {params, batch_stats}`` (either Bottleneck
+    layout, either BatchNorm kind) through :func:`from_jax_variables`. Any
+    other key of a JAX payload (optimizer state, histories) is ignored."""
+    sd = payload.get("state_dict", payload)
+    if isinstance(sd, dict) and "params" in sd and "batch_stats" in sd:
+        return from_jax_variables(sd["params"], sd["batch_stats"])
+    return sd

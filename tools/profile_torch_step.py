@@ -8,7 +8,10 @@ does (``--path simclr``: ``contrastive_learning``; ``probe``:
 ``rls``: ``detr_image_classification_rls``, that DETR with a ResNet18 DQN,
 A = 100: the rollout with the policy picking every fixation after the first,
 the DETR update, the replay push and a DQN update on 256 replay samples,
-which the driver takes with probability 0.7 a step), runs warm-up steps, then times ``--steps`` steps with the host clock around
+which the driver takes with probability 0.7 a step; ``caption``:
+``coco_captions_probe``, the float32 encoder frozen in eval mode, the image
+head and the text tower at their defaults, Adam), runs warm-up steps, then
+times ``--steps`` steps with the host clock around
 synchronised steps and traces one more with ``torch.profiler``. Prints the
 step time, the traced step's device busy time as a share of the untraced
 median step, device time by kernel group and the top kernels by device
@@ -18,6 +21,7 @@ time, then one JSON line with the same numbers.
     python3 tools/profile_torch_step.py --stat-fusion pallas --norm-kind bn_fused
     python3 tools/profile_torch_step.py --path detr -f 2
     python3 tools/profile_torch_step.py --path rls -f 2
+    python3 tools/profile_torch_step.py --path caption -f 2
 
 ``--stat-fusion`` and ``--norm-kind`` select the fused BatchNorm
 statistics (the ``conv1x1_stats`` and ``stat_sums`` kernels), as the JAX
@@ -40,6 +44,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
 
+from multimodal_active_ai_tpu_torch.coco_captions_probe import caption_tokens  # noqa: E402
 from multimodal_active_ai_tpu_torch.detr_image_classification_rls import push_rollout  # noqa: E402
 from multimodal_active_ai_tpu_torch.device import resolve_device  # noqa: E402
 from multimodal_active_ai_tpu_torch.models.detr import DETR  # noqa: E402
@@ -47,11 +52,12 @@ from multimodal_active_ai_tpu_torch.models.mlp import LogisticRegression  # noqa
 from multimodal_active_ai_tpu_torch.models.qnet import build_dqn  # noqa: E402
 from multimodal_active_ai_tpu_torch.models.resnet import encoder_feature_dim  # noqa: E402
 from multimodal_active_ai_tpu_torch.models.simclr import SimCLRModule  # noqa: E402
+from multimodal_active_ai_tpu_torch.models.text import TextEncoder  # noqa: E402
 from multimodal_active_ai_tpu_torch.objectives.set_criterion import SetCriterion  # noqa: E402
 from multimodal_active_ai_tpu_torch.ops import retina  # noqa: E402
 from multimodal_active_ai_tpu_torch.rl.replay_memory import ReplayMemory  # noqa: E402
 from multimodal_active_ai_tpu_torch.train import (  # noqa: E402
-    detr_train, eval_probe, optimizers, rls_train, schedule, simclr_train)
+    caption_probe, detr_train, eval_probe, optimizers, rls_train, schedule, simclr_train)
 
 # kernel-name fragments → group, first match wins
 GROUPS = [
@@ -114,9 +120,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="ResNet50")
     ap.add_argument("-b", "--batch-size", type=int, default=128)
-    ap.add_argument("--path", default="simclr", choices=["simclr", "probe", "detr", "rls"])
+    ap.add_argument("--path", default="simclr", choices=["simclr", "probe", "detr", "rls", "caption"])
     ap.add_argument("-f", "--num-fixations", type=int, default=None,
-                    help="default 10 for simclr, 2 for probe, detr and rls")
+                    help="default 10 for simclr, 2 for probe, detr, rls and caption")
     ap.add_argument("--canvas-size", type=int, default=640)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=20)
@@ -133,7 +139,9 @@ def main(argv=None) -> int:
                          text=True).stdout.strip().splitlines()[0]
     b, s = args.batch_size, args.canvas_size
     f = args.num_fixations or (10 if args.path == "simclr" else 2)
-    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    # the caption probe's encoder is float32, as in the JAX driver
+    bf16 = args.bf16 and args.path != "caption"
+    dtype = torch.bfloat16 if bf16 else torch.float32
     cfg = retina.RetinaConfig(canvas_size=s)
     seeded = torch.Generator().manual_seed(15)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -158,6 +166,19 @@ def main(argv=None) -> int:
 
         def step(state, images, gen):
             return probe_step(state, encoder, images, labels, gen)
+    elif args.path == "caption":
+        encoder = SimCLRModule(arch=args.arch, generator=seeded)
+        encoder = encoder.to(device).to(memory_format=torch.channels_last).eval()
+        towers = caption_probe.CaptionTowers(encoder_feature_dim(args.arch) * 16 * f,
+                                             TextEncoder(generator=seeded), generator=seeded)
+        towers = towers.to(device)
+        state = simclr_train.TrainState(
+            towers, optimizers.get_optimizer("adam", towers.parameters()), lambda _: 1e-4)
+        cap_step = caption_probe.make_caption_probe_train_step(cfg, f, 0.05)
+        tokens = caption_tokens(labels, 32768, 32)
+
+        def step(state, images, gen):
+            return cap_step(state, encoder, images, tokens, gen)
     else:
         model = DETR(args.arch, dtype=dtype, generator=seeded)
         model = model.to(device).to(memory_format=torch.channels_last)
@@ -204,7 +225,7 @@ def main(argv=None) -> int:
         rec[1] += 1
     median = times[len(times) // 2]
     print(f"[{gpu}] {args.path} {args.arch} b={b} F={f} canvas {s} "
-          f"{'bf16' if args.bf16 else 'f32'} norm {args.norm_kind} stat-fusion "
+          f"{'bf16' if bf16 else 'f32'} norm {args.norm_kind} stat-fusion "
           f"{args.stat_fusion or 'none'}: step {median:.1f} ms (median of "
           f"{[round(t, 1) for t in times]}); traced step {traced_ms:.1f} ms "
           f"(host-side profiler overhead included); device busy {busy_ms:.1f} ms "

@@ -65,6 +65,24 @@ result line):
    B2-B4 never; losses and retrieval top-1/5 finite; the encoder unchanged;
    the resume's first step sees every tensor of both towers; the median
    caption train step and the peak memory.
+3g. Image files. An ImageNet-layout folder written from a seed with PIL
+   (421 train images, 3 batches of 128 and a padded one of 37, 128 val, 8
+   class directories; sources 300x225 to 800x600; RGB JPEG at quality 90,
+   1 in 16 grayscale JPEG, 1 in 32 RGBA PNG); its size, the host's cores and
+   the decoder. (1) A pinned, threaded ``HostLoader`` through
+   ``device_batches`` at depth 2 beside a SimCLR step on each batch, every
+   device batch equal bit for bit to a synchronous unpinned CPU loader's,
+   over two shuffled epochs. (2) The SimCLR driver at the phase-3 width with
+   ``--dataset imagenet``, ``-v`` and a cold ``--canvas-cache``: B1 launched
+   4*(1+10) + 2 = 46 times, B2-B4 never; its loader line 512 decoded (batch
+   positions, the padded batch included), 0 hits. (3) Its resume to epoch
+   2 from the cache: 0 decoded, 512 hits; its first step sees every tensor
+   of the checkpoint. (4) The probe from that checkpoint, without and with
+   the cache: B1 4 + 1. (5) The caption driver with ``--dataset
+   imagefolder``: its corpus vocabulary, finite losses and retrieval, B1 one
+   a step. The driver steps on files beside the synthetic ones of phases 3
+   and 3c, the loader's produce and wait per batch, the peak memory and the
+   phase's seconds.
 4. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX. It exits non-zero without CUDA, and when the
@@ -1315,6 +1333,308 @@ def run_caption_path(torch, counters, simclr_ck, workdir, device_name):
     return want["glimpse_sample"], ms, peak_gib
 
 
+# phase 3g: image files. An ImageNet-layout folder generated from a seed:
+# 421 train images (3 batches of 128 and a padded one of 37) and 128 val
+# images in 8 class directories, at sizes about ImageNet's and COCO's
+REAL_TRAIN, REAL_VAL, REAL_CLASSES, REAL_SEED = 421, 128, 8, 2024
+REAL_SIZES = ((500, 375), (375, 500), (640, 480), (500, 333), (300, 225), (800, 600))
+REAL_WORKERS = 4
+LOADER_LINE = (r"loader \((\w+)\): (\d+) batches \| produce ([\d.]+) ms/batch \| "
+               r"consumer wait ([\d.]+) ms/batch \| (\d+) decoded, (\d+) cache hits")
+
+
+def write_real_folder(root: str) -> tuple[float, int]:
+    """``root/{train,val}/class_c/``: smooth class-hued pictures with noise,
+    mostly RGB JPEG at quality 90, 1 in 16 grayscale JPEG, 1 in 32 RGBA PNG;
+    returns the folder's MB and its image count."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+    from PIL import Image
+
+    hues = [np.array(Image.new("HSV", (1, 1), (c * 256 // REAL_CLASSES, 200, 200))
+                     .convert("RGB"))[0, 0].astype(np.float32) for c in range(REAL_CLASSES)]
+    jobs = [(split, i) for split, n in (("train", REAL_TRAIN), ("val", REAL_VAL))
+            for i in range(n)]
+
+    def write(job):
+        split, i = job
+        rng = np.random.RandomState(REAL_SEED * 100_003 + (split == "val") * 50_000 + i)
+        c = i % REAL_CLASSES
+        w, h = REAL_SIZES[rng.randint(len(REAL_SIZES))]
+        field = Image.fromarray(rng.randint(0, 256, (6, 8, 3), dtype=np.uint8))
+        smooth = np.asarray(field.resize((w, h), Image.BICUBIC), np.float32)
+        noise = rng.randint(-14, 15, (h, w, 3), dtype=np.int16)
+        img = np.clip(0.55 * hues[c] + 0.45 * smooth + noise, 0, 255).astype(np.uint8)
+        d = os.path.join(root, split, f"n{c:08d}")
+        if i % 32 == 31:
+            path = os.path.join(d, f"{split}_{i:05d}.png")
+            Image.fromarray(np.dstack([img, img[..., :1]]), "RGBA").save(path)
+        elif i % 16 == 15:
+            path = os.path.join(d, f"{split}_{i:05d}.JPEG")
+            Image.fromarray(img).convert("L").save(path, "JPEG", quality=90)
+        else:
+            path = os.path.join(d, f"{split}_{i:05d}.JPEG")
+            Image.fromarray(img).save(path, "JPEG", quality=90)
+        return os.path.getsize(path)
+
+    for split in ("train", "val"):
+        for c in range(REAL_CLASSES):
+            os.makedirs(os.path.join(root, split, f"n{c:08d}"))
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        sizes = list(pool.map(write, jobs))
+    return sum(sizes) / 1e6, len(sizes)
+
+
+def loader_stats(log: str, label: str) -> dict:
+    """The one loader line of a driver run's ``-v`` output, parsed."""
+    import re
+    found = re.findall(LOADER_LINE, log)
+    if len(found) != 1:
+        fail(f"{label}: expected one loader line, found {found}")
+    decoder, batches, produce, wait, decoded, hits = found[0]
+    return {"decoder": decoder, "batches": int(batches), "produce_ms": float(produce),
+            "wait_ms": float(wait), "decoded": int(decoded), "hits": int(hits)}
+
+
+def run_logged(torch, counters, main, argv, label):
+    """One driver run with its output captured and printed under ``label``;
+    returns what ``main`` returns, the output, the launch counts and the
+    driver's step times (ms, from its ``-p 1`` speed lines)."""
+    import contextlib
+    import io
+    import re
+    gc.collect()
+    torch.cuda.synchronize()
+    reset_counts(counters.values())
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log = out.getvalue()
+    for line in log.splitlines():
+        print(f"  [{label}] {line}")
+    got = {k: c.launches for k, c in counters.items()}
+    steps = [1e3 * float(t) for t in re.findall(r"^Epoch: \[\d+\]\[\d+/\d+\]\s+Time (\S+) ",
+                                                 log, re.M)]
+    print(f"{label}: wall {wall:.2f} s; launches {got}")
+    return result, log, got, steps
+
+
+def check_prefetch_exactness(torch, files, labels, device_name):
+    """Check 1 of phase 3g: a pinned, threaded loader through
+    ``device_batches`` at depth 2, with a SimCLR step (ResNet-50, b=128,
+    F=10) on each batch, against a synchronous unpinned CPU loader with the
+    same seed: every device batch equal bit for bit, over two shuffled
+    epochs across ``reset()``."""
+    from multimodal_active_ai_tpu_torch.data.loader import HostLoader
+    from multimodal_active_ai_tpu_torch.data.prefetch import device_batches
+    from multimodal_active_ai_tpu_torch.models.simclr import SimCLRModule
+    from multimodal_active_ai_tpu_torch.ops import retina
+    from multimodal_active_ai_tpu_torch.train import optimizers, schedule, simclr_train
+
+    dev = torch.device("cuda")
+    model = SimCLRModule(ARCH, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(3))
+    model = model.to(dev).to(memory_format=torch.channels_last)
+    state = simclr_train.TrainState(
+        model, optimizers.get_optimizer("adam", model.parameters()),
+        schedule.simclr_learning_rate(0.01, BATCH, len(files), BATCH, 10, 190))
+    step = simclr_train.make_train_step(retina.RetinaConfig(canvas_size=CANVAS), FIXATIONS, 0.05)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    kw = dict(batch_size=BATCH, canvas_size=CANVAS, shuffle=True, seed=11,
+              num_threads=REAL_WORKERS)
+    pinned = HostLoader(files, labels, prefetch=2, pin_memory=True, **kw)
+    plain = HostLoader(files, labels, prefetch=0, pin_memory=False, **kw)
+    compared, times = 0, []
+    for epoch in range(2):
+        ref = iter(plain)
+        batches = device_batches(pinned, dev, depth=2)
+        try:
+            for i in range(len(pinned)):
+                want_images, want_labels = (t.to(dev) for t in next(ref))
+                # compared as soon as it arrives, while later copies are in flight
+                images, lbl = next(batches)
+                same = torch.equal(images, want_images) and torch.equal(lbl, want_labels)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses = step(state, images, gen)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                if not same:
+                    fail(f"prefetched device batch {i} of epoch {epoch} differs from the "
+                         "synchronous CPU loader's")
+                if not bool(torch.isfinite(losses).all()):
+                    fail(f"non-finite losses {losses.tolist()}")
+                compared += 1
+            if next(batches, None) is not None:
+                fail(f"the pinned loader gave more than {len(pinned)} batches")
+        finally:
+            batches.close()
+            ref.close()
+        if pinned.stats["batches"] != len(pinned):
+            fail(f"the pinned loader gave {pinned.stats['batches']} of {len(pinned)} batches")
+        print(f"exactness epoch {epoch}: {pinned.stats_line()} (its consumer is the transfer "
+              "thread)")
+        pinned.reset()
+        plain.reset()
+    if compared != 2 * len(pinned):
+        fail(f"compared {compared} batches, expected {2 * len(pinned)}")
+    print(f"host->card exactness: {compared} pinned, prefetched (depth 2) device batches over 2 "
+          f"shuffled epochs equal bit for bit to the synchronous unpinned CPU loader's, each "
+          f"compared on arrival, then a SimCLR step on it (median "
+          f"{sorted(times)[len(times) // 2]:.1f} ms) [{device_name}]")
+
+
+def run_real_files_path(torch, counters, workdir, device_name):
+    """Phase 3g: the drivers on image files (see the module docstring).
+    Returns the median driver steps on files and the peak memory."""
+    from multimodal_active_ai_tpu_torch import coco_captions_probe as cap_driver
+    from multimodal_active_ai_tpu_torch import contrastive_learning as driver
+    from multimodal_active_ai_tpu_torch import representation_evaluation as probe_driver
+    from multimodal_active_ai_tpu_torch.data import native
+    from multimodal_active_ai_tpu_torch.data.readers import list_image_folder
+    from multimodal_active_ai_tpu_torch.train import simclr_train
+    from multimodal_active_ai_tpu_torch.utils import checkpoint
+
+    data = os.path.join(workdir, "images")
+    cache = os.path.join(workdir, "canvas_cache")
+    t0 = time.perf_counter()
+    mb, count = write_real_folder(data)
+    print(f"image folder: {count} files ({REAL_TRAIN} train, {REAL_VAL} val, {REAL_CLASSES} "
+          f"classes), {mb:.1f} MB, written in {time.perf_counter() - t0:.1f} s")
+    decoder = "native" if native.available() else "pil"
+    print(f"host: os.cpu_count() {os.cpu_count()}, sched_getaffinity "
+          f"{len(os.sched_getaffinity(0))} cores; decoder {decoder}; -j {REAL_WORKERS}")
+    files, labels, _ = list_image_folder(os.path.join(data, "train"))
+    check_prefetch_exactness(torch, files, labels, device_name)
+
+    nb = math.ceil(REAL_TRAIN / BATCH)
+    padded = nb * BATCH
+    base = [data, "--dataset", "imagenet", "-b", str(BATCH), "--canvas-size", str(CANVAS),
+            "--epochs", "1", "-t", "-v", "-p", "1", "-j", str(REAL_WORKERS)]
+    zero = {"stat_sums": 0, "conv1x1_stats": 0, "hat_sample": 0}
+
+    def expect(label, got, b1, stats, decoded, hits):
+        if got != {"glimpse_sample": b1, **zero}:
+            fail(f"{label}: launches {got}, expected glimpse_sample {b1}, others 0")
+        if (stats["decoder"], stats["batches"], stats["decoded"], stats["hits"]) != (
+                decoder, nb, decoded, hits):
+            fail(f"{label}: loader {stats}, expected {nb} batches, {decoded} decoded, "
+                 f"{hits} hits ({decoder})")
+
+    # check 2: the SimCLR driver at full width, the cache cold
+    ckdir = os.path.join(workdir, "simclr_files")
+    argv = base + ["--arch", ARCH, "-f", str(FIXATIONS), "--checkpoint-dir", ckdir,
+                   "--canvas-cache", cache]
+    torch.cuda.reset_peak_memory_stats()
+    state, log, got, simclr_steps = run_logged(torch, counters, driver.main, argv,
+                                               "simclr files, cache cold")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    stats = loader_stats(log, "simclr files")
+    expect("simclr files", got, nb * (1 + FIXATIONS) + 2, stats, padded, 0)
+    ck = os.path.join(ckdir, "checkpoint.pth.tar")
+    payload = checkpoint.load_checkpoint(ck, "cuda")
+    if payload["step"] != nb * FIXATIONS or state.step != payload["step"] or not all(
+            math.isfinite(x) for x in payload["loss_history"]):
+        fail(f"simclr files: step {payload['step']}, loss history {payload['loss_history']}")
+
+    # check 3: its resume to --epochs 2, served from the cache; the first
+    # step sees every tensor of the checkpoint
+    seen = {}
+    make = simclr_train.make_train_step
+
+    def spy(*args, **kwargs):
+        inner = make(*args, **kwargs)
+
+        def first(st, *rest):
+            if not seen:
+                seen.update(model={k: v.clone() for k, v in st.model.state_dict().items()},
+                            opt={i: {k: v.clone() for k, v in o.items()} for i, o in
+                                 st.optimizer.state_dict()["state"].items()}, step=st.step)
+            return inner(st, *rest)
+        return first
+
+    simclr_train.make_train_step = spy
+    try:
+        resumed, log, got, resume_steps = run_logged(
+            torch, counters, driver.main, argv + ["--epochs", "2", "--resume", ck],
+            "simclr files, resume, cache warm")
+    finally:
+        simclr_train.make_train_step = make
+    warm = loader_stats(log, "simclr files resume")
+    expect("simclr files resume", got, nb * (1 + FIXATIONS) + 2, warm, 0, padded)
+    sd, opt = payload["state_dict"], payload["optimizer"]["state"]
+    if seen.get("step") != payload["step"] or sorted(seen["model"]) != sorted(sd) or not all(
+            torch.equal(seen["model"][k], v) for k, v in sd.items()) or not all(
+            torch.equal(seen["opt"][i][k], v) for i, st in opt.items()
+            for k, v in st.items()):
+        fail("simclr files resume: its first step did not see every checkpoint tensor")
+    if resumed.step != 2 * nb * FIXATIONS:
+        fail(f"simclr files resume: {resumed.step} updates, expected {2 * nb * FIXATIONS}")
+    print(f"simclr files resume: the first step saw all {len(sd)} state_dict tensors and the "
+          f"optimizer state of {len(opt)} parameters bit for bit (step {seen['step']})")
+
+    # check 4: the probe from that checkpoint, without and with the cache
+    probe = {}
+    for label, extra, decoded, hits in (("cache off", [], padded, 0),
+                                        ("cache warm", ["--canvas-cache", cache], 0, padded)):
+        pdir = os.path.join(workdir, f"probe_files_{len(probe)}")
+        pstate, log, got, steps = run_logged(
+            torch, counters, probe_driver.main,
+            [ck] + base + ["--arch", ARCH, "-f", str(PROBE_FIXATIONS), "--checkpoint-dir",
+                           pdir] + extra, f"probe files, {label}")
+        pstats = loader_stats(log, f"probe files {label}")
+        expect(f"probe files {label}", got, nb + 1, pstats, decoded, hits)
+        pck = checkpoint.load_checkpoint(os.path.join(pdir, "classifier_checkpoint.pth.tar"),
+                                         "cuda")
+        if pstate.step != nb or not all(bool(torch.isfinite(v).all())
+                                        for v in pck["state_dict"].values()):
+            fail(f"probe files {label}: {pstate.step} updates or non-finite weights")
+        probe[label] = (steps, pstats)
+
+    # check 5: the caption driver on the folder's class names
+    cdir = os.path.join(workdir, "caption_files")
+    (cstate, vocab), log, got, _ = run_logged(
+        torch, counters, cap_driver.main,
+        [ck, data, "--dataset", "imagefolder", "-a", ARCH, "-b", str(BATCH), "-f",
+         str(PROBE_FIXATIONS), "--canvas-size", str(CANVAS), "-t", "--epochs", "1", "-v", "-p",
+         "1", "-j", str(REAL_WORKERS), "--checkpoint-dir", cdir, "--canvas-cache", cache],
+        "caption imagefolder")
+    import re
+    train_steps, eval_steps = cap_driver.loop_steps(True, nb)
+    losses = [float(x) for x in re.findall(r"Loss (\S+) ", log)]
+    top = {k: float(v) for k, v in re.findall(r"##(\S+ Top-\d) (\S+)", log)}
+    if f"caption vocabulary: {vocab.size} entries" not in log:
+        fail("caption imagefolder: no corpus vocabulary line")
+    if got != {"glimpse_sample": train_steps + eval_steps, **zero} or cstate.step != train_steps:
+        fail(f"caption imagefolder: launches {got}, {cstate.step} updates")
+    if len(losses) != train_steps or not all(math.isfinite(x) for x in losses) or sorted(
+            top) != ["I2T Top-1", "I2T Top-5", "T2I Top-1", "T2I Top-5"] or not all(
+            0 <= v <= 1 for v in top.values()):
+        fail(f"caption imagefolder: losses {losses}, retrieval {top}")
+    print(f"caption imagefolder: vocabulary {vocab.size} words, losses "
+          f"{[round(x, 4) for x in losses]}, retrieval {top}, glimpse_sample "
+          f"{got['glimpse_sample']} launches ({train_steps} train + {eval_steps} eval steps); "
+          f"{loader_stats(log, 'caption imagefolder')}")
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    print(f"loader per batch (b={BATCH}, canvas {CANVAS}, -j {REAL_WORKERS}, {decoder}): "
+          f"simclr cold produce {stats['produce_ms']:.1f} ms, wait {stats['wait_ms']:.1f} ms; "
+          f"simclr warm produce {warm['produce_ms']:.1f} ms, wait {warm['wait_ms']:.1f} ms; "
+          f"probe cold produce {probe['cache off'][1]['produce_ms']:.1f} ms, wait "
+          f"{probe['cache off'][1]['wait_ms']:.1f} ms; probe warm produce "
+          f"{probe['cache warm'][1]['produce_ms']:.1f} ms, wait "
+          f"{probe['cache warm'][1]['wait_ms']:.1f} ms [{device_name}]")
+    return {"simclr_cold": simclr_steps, "simclr_warm": resume_steps,
+            "probe_cold": probe["cache off"][0], "probe_warm": probe["cache warm"][0],
+            "simclr_cold_ms": med(simclr_steps), "simclr_warm_ms": med(resume_steps),
+            "probe_cold_ms": med(probe["cache off"][0]),
+            "probe_warm_ms": med(probe["cache warm"][0]), "peak_gib": peak_gib}
+
+
 def run_stat_fusion_paths(torch, counters, driver, ckpt_mod, device_name):
     """Phase 3b: the driver with ``--stat-fusion pallas`` (3 train steps +
     validation, then a resume), and train steps of the ``bn_fused`` +
@@ -1434,7 +1754,7 @@ def main() -> int:
 
     # phase 3: the main path (norm 'bn'); 3b: the fused-statistics paths;
     # 3c, 3d, 3e and 3f: the probe, DETR, RLS and caption drivers from the
-    # phase-3 checkpoint
+    # phase-3 checkpoint; 3g: the drivers on image files
     workdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         rows["glimpse_sample"]["launches"], bn_ms, simclr_ck = run_main_path(
@@ -1451,6 +1771,10 @@ def main() -> int:
                                                           device_name)
         print(f"phase 3f (caption driver, its resume and 9 timed steps): "
               f"{time.perf_counter() - t3f:.1f} s")
+        t3g = time.perf_counter()
+        real = run_real_files_path(torch, counters, workdir, device_name)
+        print(f"phase 3g (image folder, exactness, SimCLR, its resume, probe twice, "
+              f"captions): {time.perf_counter() - t3g:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     rows["conv1x1_stats"]["launches"] = fused["conv1x1_stats"]
@@ -1472,6 +1796,16 @@ def main() -> int:
           f"canvas {CANVAS}; text tower at its defaults): {cap_ms:.1f} ms "
           f"({BATCH / cap_ms * 1e3:.1f} img/s), peak memory {cap_peak:.2f} GiB; glimpse_sample "
           f"launches {cap_launches} a driver run [{device_name}]")
+
+    print(f"median driver step on image files ({ARCH}, b={BATCH}, canvas {CANVAS}, bf16; host "
+          f"clock of the driver's -p 1 lines, the loader in the loop): SimCLR F={FIXATIONS} "
+          f"cache cold {real['simclr_cold_ms']:.1f} ms {[round(t) for t in real['simclr_cold']]}"
+          f", cache warm {real['simclr_warm_ms']:.1f} ms "
+          f"{[round(t) for t in real['simclr_warm']]}, synthetic (phase 3) {bn_ms:.1f} ms; "
+          f"probe F={PROBE_FIXATIONS} cache off {real['probe_cold_ms']:.1f} ms "
+          f"{[round(t) for t in real['probe_cold']]}, cache warm {real['probe_warm_ms']:.1f} ms "
+          f"{[round(t) for t in real['probe_warm']]}, synthetic (phase 3c) {probe_ms:.1f} ms; "
+          f"peak memory {real['peak_gib']:.2f} GiB in the SimCLR run [{device_name}]")
 
     # phase 4: results
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -28,20 +28,36 @@ state): it restores the towers' parameters and the vocabulary; Adam starts
 fresh and the epochs restart at 0, as in the JAX driver. A checkpoint built
 for another vocabulary size raises ``ValueError``.
 
-Not ported yet, and raising with the ROADMAP item: ``--dataset
-mscoco/imagefolder`` and ``--canvas-cache`` (A4).
+``--dataset mscoco DATA`` pairs each image with its caption annotations
+(``DATA/MSCOCO/cocoapi/annotations/captions_train2014.json`` over
+``images/train2014``, else a ``captions*.json`` in ``DATA``, else ``DATA``'s
+file names), and ``--dataset imagefolder DATA`` templates one caption per
+image from its class directory (``DATA/train``, else ``DATA``). Both read the
+files through a shuffled :class:`~multimodal_active_ai_tpu_torch.data.
+loader.HostLoader` (``-j`` decode threads, ``--canvas-cache``), whose label
+is the caption's index, and tokenize with a
+:class:`~multimodal_active_ai_tpu_torch.models.text.Vocabulary` built over
+the captions (capped at ``--vocab-size``), or the resumed checkpoint's,
+with a warning when the captions would build another. ``-v`` prints the
+loader's line after each train epoch. As in the JAX driver, the eval loop
+reads the train images.
 """
 
 from __future__ import annotations
 
+import json
 import os
+from contextlib import closing
 from itertools import islice
 from time import time
 
 import torch
 
 from multimodal_active_ai_tpu_torch.config import CaptionProbeConfig, check_ported, parse_into
-from multimodal_active_ai_tpu_torch.contrastive_learning import generator
+from multimodal_active_ai_tpu_torch.contrastive_learning import generator, print_loader_stats
+from multimodal_active_ai_tpu_torch.data.loader import HostLoader
+from multimodal_active_ai_tpu_torch.data.prefetch import device_batches
+from multimodal_active_ai_tpu_torch.data.readers import list_coco_images, list_image_folder
 from multimodal_active_ai_tpu_torch.data.synthetic import SyntheticReader
 from multimodal_active_ai_tpu_torch.device import resolve_device, synchronize
 from multimodal_active_ai_tpu_torch.models.resnet import encoder_feature_dim
@@ -63,6 +79,78 @@ def caption_tokens(labels: torch.Tensor, vocab_size: int, max_len: int) -> torch
     rows = [tokenize(f"a synthetic picture of class {int(l)}", vocab_size, max_len)[0]
             for l in labels.tolist()]
     return torch.tensor(rows, dtype=torch.int64, device=labels.device)
+
+
+def load_caption_pairs(cfg) -> tuple[list[str], list[str]]:
+    """(files, captions) from the COCO caption annotations
+    (``captions_train2014.json``), one pair per annotation; without them,
+    each image file of ``cfg.data`` with its file name as the caption."""
+    root = os.path.join(cfg.data, "MSCOCO", "cocoapi")
+    ann_file = os.path.join(root, "annotations", "captions_train2014.json")
+    file_root = os.path.join(root, "images", "train2014")
+    if not os.path.isfile(ann_file):
+        ann_file = None
+        for cand in os.listdir(cfg.data):
+            if cand.startswith("captions") and cand.endswith(".json"):
+                ann_file = os.path.join(cfg.data, cand)
+                file_root = cfg.data
+                break
+    if ann_file is None:
+        files = list_coco_images(cfg.data)
+        return files, [os.path.basename(f).replace("_", " ") for f in files]
+    with open(ann_file) as f:
+        ann = json.load(f)
+    by_id = {im["id"]: im["file_name"] for im in ann["images"]}
+    files, captions = [], []
+    for a in ann["annotations"]:
+        name = by_id.get(a["image_id"])
+        if name:
+            files.append(os.path.join(file_root, name))
+            captions.append(a["caption"])
+    return files, captions
+
+
+_CAPTION_TEMPLATES = (
+    "a photo of a {} pattern",
+    "an image with {} coloring",
+    "the picture shows a {} grating",
+    "a synthetic {} textured sample",
+)
+
+
+def imagefolder_captions(labels, classes) -> list[str]:
+    """One templated caption per file from its class-directory name, the
+    templates rotating by file index so the vocabulary holds more than one
+    word a class. Captions repeat within a class, which caps in-batch
+    retrieval top-1 below 1."""
+    names = [c.replace("_", " ") for c in classes]
+    return [_CAPTION_TEMPLATES[i % len(_CAPTION_TEMPLATES)].format(names[l])
+            for i, l in enumerate(labels)]
+
+
+def caption_catalog(cfg) -> tuple[list[str], list[str]]:
+    """(files, captions) of ``--dataset mscoco`` or ``imagefolder``; a
+    missing data directory raises ``FileNotFoundError``."""
+    if not cfg.data or not os.path.isdir(cfg.data):
+        raise FileNotFoundError(f"--dataset {cfg.dataset}: no data directory at {cfg.data!r}")
+    if cfg.dataset == "imagefolder":
+        root = os.path.join(cfg.data, "train")
+        files, labels, classes = list_image_folder(root if os.path.isdir(root) else cfg.data)
+        return files, imagefolder_captions(labels, classes)
+    return load_caption_pairs(cfg)
+
+
+def with_tokens(reader, tokens_for):
+    """``(images, tokens)`` for each ``(images, labels)`` batch of
+    ``reader``; closing it closes the reader's iterator."""
+    it = iter(reader)
+    try:
+        for images, labels in it:
+            yield images, tokens_for(labels)
+    finally:
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
 
 
 def loop_steps(test: bool, batches: int) -> tuple[int, int]:
@@ -103,30 +191,52 @@ def main(argv=None):
     if device.type == "cuda":
         encoder = encoder.to(memory_format=torch.channels_last)
     load_pretrained_encoder(encoder, cfg.model, device)
-    reader = SyntheticReader(cfg.batch_size, cfg.canvas_size,
-                             num_examples=cfg.num_examples or 16 * cfg.batch_size,
-                             seed=cfg.seed, device=device)
+    captions = None
+    if cfg.dataset == "synthetic":
+        reader = SyntheticReader(cfg.batch_size, cfg.canvas_size,
+                                 num_examples=cfg.num_examples or 16 * cfg.batch_size,
+                                 seed=cfg.seed, device=device)
+    else:
+        files, captions = caption_catalog(cfg)
+        reader = HostLoader(files, list(range(len(files))), batch_size=cfg.batch_size,
+                            canvas_size=cfg.canvas_size, shuffle=True, seed=cfg.seed,
+                            num_threads=cfg.workers, cache_dir=cfg.canvas_cache or None,
+                            pin_memory=device.type == "cuda")
 
     payload, vocab = None, None
+    text_vocab_size = cfg.vocab_size
     if cfg.resume and os.path.isfile(cfg.resume):
         payload = ckpt.load_checkpoint(cfg.resume)
     elif cfg.resume:
         print(f"=> no checkpoint found at '{cfg.resume}'")
     if payload is not None and "vocab_words_u8" in payload:
-        # the saved embedding is indexed by this word→id map: keep it with
-        # the towers (synthetic captions are still hashed, as in the JAX driver)
+        # the saved embedding is indexed by this word→id map: restore it
+        # rather than trust the captions on disk to rebuild it identically
+        # (synthetic captions are still hashed, as in the JAX driver)
         vocab = Vocabulary.from_u8(payload["vocab_words_u8"], max_len=cfg.max_len)
         print(f"caption vocabulary: {vocab.size} entries, from the checkpoint")
+        if captions is not None:
+            rebuilt = Vocabulary.build(captions, max_size=cfg.vocab_size, max_len=cfg.max_len)
+            if rebuilt.words != vocab.words:
+                print("WARNING: caption corpus changed since the checkpoint was written "
+                      f"({rebuilt.size} vs {vocab.size} entries); using the checkpoint's "
+                      "vocabulary")
+    elif captions is not None:
+        vocab = Vocabulary.build(captions, max_size=cfg.vocab_size, max_len=cfg.max_len)
+    if captions is not None:
+        text_vocab_size = vocab.size
+        print(f"caption vocabulary: {vocab.size} entries (cap {cfg.vocab_size}) over "
+              f"{len(captions)} captions")
 
     feat_dim = encoder_feature_dim(cfg.arch) * 16 * cfg.num_fixations
     seeded = torch.Generator().manual_seed(cfg.seed + 1)
     towers = caption_probe.CaptionTowers(
-        feat_dim, TextEncoder(vocab_size=cfg.vocab_size, out_dim=128, generator=seeded),
+        feat_dim, TextEncoder(vocab_size=text_vocab_size, out_dim=128, generator=seeded),
         generator=seeded).to(device)
     state = TrainState(towers, optimizers.get_optimizer("adam", towers.parameters()),
                        lambda _: cfg.lr)
     if payload is not None:
-        restore_towers(towers, payload, cfg.num_fixations, cfg.vocab_size)
+        restore_towers(towers, payload, cfg.num_fixations, text_vocab_size)
         print(f"=> resumed caption probe from '{cfg.resume}' (epoch {int(payload['epoch'])})")
 
     train_step = caption_probe.make_caption_probe_train_step(
@@ -139,33 +249,39 @@ def main(argv=None):
     train_steps, eval_steps = loop_steps(cfg.test, len(reader))
 
     def tokens_for(labels):
-        return caption_tokens(labels, cfg.vocab_size, cfg.max_len)
+        if captions is None:
+            return caption_tokens(labels, cfg.vocab_size, cfg.max_len)
+        return torch.tensor([vocab.encode(captions[i])[0] for i in labels.tolist()],
+                            dtype=torch.int64)
 
     for epoch in range(cfg.epochs):
         meters = {k: AverageMeter() for k in METRICS}
         losses = AverageMeter()
         gen = generator(device, cfg.seed, 30_000 + epoch)
         end = time()
-        for i, (images, labels) in enumerate(islice(reader, train_steps)):
-            m = train_step(state, encoder, images, tokens_for(labels), gen)
-            if i % cfg.print_freq == 0:
-                losses.update(float(m["loss"]))
-                synchronize(device)
-                print(f"Epoch: [{epoch}][{i}/{len(reader)}]\tLoss {losses.val:.6f} "
-                      f"({losses.avg:.6f})\tTime {(time() - end) / cfg.print_freq:.3f}")
-                end = time()
+        with closing(device_batches(with_tokens(reader, tokens_for), device)) as batches:
+            for i, (images, tokens) in enumerate(islice(batches, train_steps)):
+                m = train_step(state, encoder, images, tokens, gen)
+                if i % cfg.print_freq == 0:
+                    losses.update(float(m["loss"]))
+                    synchronize(device)
+                    print(f"Epoch: [{epoch}][{i}/{len(reader)}]\tLoss {losses.val:.6f} "
+                          f"({losses.avg:.6f})\tTime {(time() - end) / cfg.print_freq:.3f}")
+                    end = time()
+        print_loader_stats(cfg, reader)
         reader.reset()
 
         gen = generator(device, cfg.seed, 40_000 + epoch)
-        for images, labels in islice(reader, eval_steps):
-            m = eval_step(state, encoder, images, tokens_for(labels), gen)
-            for k in meters:
-                meters[k].update(float(m[k]))
+        with closing(device_batches(with_tokens(reader, tokens_for), device)) as batches:
+            for images, tokens in islice(batches, eval_steps):
+                m = eval_step(state, encoder, images, tokens, gen)
+                for k in meters:
+                    meters[k].update(float(m[k]))
         reader.reset()
         print(f"##I2T Top-1 {meters['i2t_top1'].avg}\n##I2T Top-5 {meters['i2t_top5'].avg}\n"
               f"##T2I Top-1 {meters['t2i_top1'].avg}\n##T2I Top-5 {meters['t2i_top5'].avg}")
         out = {"epoch": epoch + 1, "state_dict": towers.state_dict(),
-               "vocab_size": cfg.vocab_size}
+               "vocab_size": text_vocab_size}
         if vocab is not None:
             print(f"##Vocab {vocab.size} OOV-rate {vocab.oov_rate:.4f}")
             out["vocab_words_u8"] = torch.from_numpy(vocab.to_u8())

@@ -8,8 +8,8 @@ reference's underscore flags included (``--enc_layers``, ``--lr_backbone``,
 ``--clip_max_norm``), so a JAX command line runs here unchanged, plus
 ``--device``. Flags whose feature has not been ported raise
 ``NotImplementedError`` in the drivers (:func:`check_ported`), naming the
-ROADMAP item. The file readers' own flags (``-j``, ``--device-prefetch``)
-have no effect with ``--dataset synthetic``, as in the JAX drivers.
+ROADMAP item. The file readers' own flags (``-j``, ``--canvas-cache``) have
+no effect with ``--dataset synthetic``, as in the JAX drivers.
 """
 
 from __future__ import annotations
@@ -77,15 +77,15 @@ class ContrastiveConfig:
                                    "checkpoint to this path")
     canvas_cache: str = _flag("--canvas-cache", default="",
                               help="decode-once canvas cache directory for "
-                                   "the file readers (not ported: raises)")
+                                   "the file readers")
     unroll_fixations: int = _flag("--unroll-fixations", default=0,
                                   help="JAX scan-unroll knob; only 0 is "
                                        "accepted, the eager loop has no "
                                        "scan to unroll")
     device_prefetch: int = _flag("--device-prefetch", default=2,
-                                 help="host->device prefetch depth of the "
-                                      "file readers; synthetic batches are "
-                                      "made on the device")
+                                 help="batches copied to the device ahead of "
+                                      "the train step (0: each copied when "
+                                      "used)")
     stat_fusion: str = _flag("--stat-fusion", default="",
                              choices=["", "gram", "pallas"],
                              help="take the Bottleneck 1x1 convs' BN "
@@ -139,7 +139,7 @@ class EvalConfig:
                                    "checkpoint to this path")
     canvas_cache: str = _flag("--canvas-cache", default="",
                               help="decode-once canvas cache directory for "
-                                   "the file readers (not ported: raises)")
+                                   "the file readers")
     device: str = _flag("--device", default="cuda",
                         help="'cuda' (default; raises if absent) or 'cpu'")
 
@@ -196,7 +196,7 @@ class DETRConfig:
                                    "checkpoint to this path")
     canvas_cache: str = _flag("--canvas-cache", default="",
                               help="decode-once canvas cache directory for "
-                                   "the file readers (not ported: raises)")
+                                   "the file readers")
     backbone_norm: str = _flag("--backbone-norm", default="frozen",
                                choices=["frozen", "group"],
                                help="backbone norm: 'frozen' (FrozenBatchNorm, "
@@ -256,8 +256,7 @@ class CaptionProbeConfig:
     checkpoint_dir: str = _flag("--checkpoint-dir", default=".")
     resume: str = _flag("--resume", default="")
     canvas_cache: str = _flag("--canvas-cache", default="",
-                              help="decode-once canvas cache directory "
-                                   "(not ported: raises)")
+                              help="decode-once canvas cache directory")
     device: str = _flag("--device", default="cuda",
                         help="'cuda' (default; raises if absent) or 'cpu'")
 
@@ -265,16 +264,9 @@ class CaptionProbeConfig:
 def check_ported(cfg) -> None:
     """Refuse every flag value of a driver config whose feature is not
     ported yet, naming the ROADMAP item."""
-    if cfg.dataset != "synthetic":
-        raise NotImplementedError(
-            f"--dataset {cfg.dataset} is not ported yet (ROADMAP A4: HostLoader, "
-            "the readers and an image decoder); use --dataset synthetic")
     if getattr(cfg, "multislice", False):
         raise NotImplementedError(
             "--multislice is not ported yet (ROADMAP A6: multi-GPU, DDP/SyncBN)")
-    if cfg.canvas_cache:
-        raise NotImplementedError(
-            "--canvas-cache is not ported yet (ROADMAP A4: HostLoader and the readers)")
     if getattr(cfg, "unroll_fixations", 0) != 0:
         raise NotImplementedError(
             "--unroll-fixations tunes the JAX scan; the eager fixation loop "

@@ -20,19 +20,33 @@ layout with or without it, so a checkpoint resumes under any
 ``--stat-fusion`` value, optimizer state included: no conversion, unlike
 the JAX driver's cross-layout resume (``contrastive_learning.py:189-201``).
 
-Not ported yet, and raising with the ROADMAP item: ``--dataset
-imagenet/mscoco`` (the file readers and an image decoder), ``--multislice``
-(multi-GPU), ``--canvas-cache``.
+``--dataset imagenet DATA`` reads an ImageNet folder (``DATA/ImageNet/ILSVRC/
+Data/CLS-LOC/{train,val}``, else ``DATA/{train,val}``, else ``DATA`` itself)
+and ``--dataset mscoco DATA`` a COCO one (``DATA/MSCOCO/cocoapi/images/
+{train,val}2014`` with its instances annotations, else ``DATA``'s image
+files), through :class:`~multimodal_active_ai_tpu_torch.data.loader.
+HostLoader`: ``-j`` decode threads, batches pinned on CUDA, copied to the
+card ``--device-prefetch`` batches ahead; ``--canvas-cache DIR`` keeps the
+decoded canvases for later epochs and runs (the JAX package's cache format).
+``-v`` prints the loader's line (decoder, produce and wait ms a batch,
+decodes, cache hits) after each train epoch.
+
+Not ported yet, and raising with the ROADMAP item: ``--multislice``
+(multi-GPU).
 """
 
 from __future__ import annotations
 
 import os
+from contextlib import closing
 from time import time
 
 import torch
 
 from multimodal_active_ai_tpu_torch.config import ContrastiveConfig, check_ported, parse_into
+from multimodal_active_ai_tpu_torch.data.loader import HostLoader
+from multimodal_active_ai_tpu_torch.data.prefetch import device_batches
+from multimodal_active_ai_tpu_torch.data.readers import list_coco_images, list_image_folder
 from multimodal_active_ai_tpu_torch.data.synthetic import SyntheticReader
 from multimodal_active_ai_tpu_torch.device import resolve_device, synchronize
 from multimodal_active_ai_tpu_torch.models.simclr import SimCLRModule
@@ -48,17 +62,54 @@ def generator(device: torch.device, seed: int, stream: int) -> torch.Generator:
 
 
 def build_reader(cfg, split: str, device: torch.device):
-    """The synthetic train/val readers (pipe1/pipe3 equivalents) of any
-    driver config; labels lie in the config's ``num_classes`` (1000 for
-    SimCLR, which has none)."""
+    """The train or val reader (pipe1/pipe3, ``Contrastive_Learning.py:289-409``)
+    of any driver config: the synthetic reader, made on ``device`` (labels in
+    the config's ``num_classes``, 1000 for SimCLR), or a
+    :class:`~multimodal_active_ai_tpu_torch.data.loader.HostLoader` over
+    the ``mscoco`` or ``imagenet`` folder at ``cfg.data``, the JAX driver's
+    layouts and fallbacks, pinned when ``device`` is CUDA. A missing data
+    directory raises ``FileNotFoundError``."""
     bs = cfg.batch_size
-    n = cfg.num_examples or 64 * bs
-    if split != "train":
-        n = max(n // 10, bs)
-    return SyntheticReader(bs, cfg.canvas_size, num_examples=n,
-                           num_classes=getattr(cfg, "num_classes", 1000),
-                           seed=cfg.seed + (0 if split == "train" else 1),
-                           device=device)
+    if cfg.dataset == "synthetic":
+        n = cfg.num_examples or 64 * bs
+        if split != "train":
+            n = max(n // 10, bs)
+        return SyntheticReader(bs, cfg.canvas_size, num_examples=n,
+                               num_classes=getattr(cfg, "num_classes", 1000),
+                               seed=cfg.seed + (0 if split == "train" else 1),
+                               device=device)
+    if not cfg.data or not os.path.isdir(cfg.data):
+        raise FileNotFoundError(f"--dataset {cfg.dataset}: no data directory at {cfg.data!r}")
+    if cfg.dataset == "mscoco":
+        sub = "train2014" if split == "train" else "val2014"
+        file_root = os.path.join(cfg.data, "MSCOCO", "cocoapi", "images", sub)
+        ann = os.path.join(cfg.data, "MSCOCO", "cocoapi", "annotations", f"instances_{sub}.json")
+        if not os.path.isdir(file_root):
+            file_root, ann = cfg.data, None
+        files, labels = list_coco_images(file_root, ann), None
+    else:   # imagenet
+        sub = "train" if split == "train" else "val"
+        file_root = os.path.join(cfg.data, "ImageNet", "ILSVRC", "Data", "CLS-LOC", sub)
+        if not os.path.isdir(file_root):
+            file_root = os.path.join(cfg.data, sub) if os.path.isdir(
+                os.path.join(cfg.data, sub)) else cfg.data
+        files, labels, _ = list_image_folder(file_root)
+    return HostLoader(files, labels, batch_size=bs, canvas_size=cfg.canvas_size,
+                      seed=cfg.seed, num_threads=cfg.workers,
+                      cache_dir=cfg.canvas_cache or None, pin_memory=device.type == "cuda")
+
+
+def epoch_examples(reader) -> int:
+    """The examples an epoch trains on, for the LR schedule: a loader's
+    padded ``shard_size``, as in the JAX drivers, else the synthetic
+    reader's ``num_examples``."""
+    return getattr(reader, "shard_size", None) or reader.num_examples
+
+
+def print_loader_stats(cfg, reader) -> None:
+    """Under ``-v``, a file reader's line for the epoch just read."""
+    if cfg.verbose and isinstance(reader, HostLoader):
+        print(reader.stats_line())
 
 
 def main(argv=None):
@@ -95,7 +146,7 @@ def main(argv=None):
     val_reader = build_reader(cfg, "val", device)
     batch = cfg.batch_size
     sched = schedule.simclr_learning_rate(
-        cfg.lr, batch, num_examples=train_reader.num_examples,
+        cfg.lr, batch, num_examples=epoch_examples(train_reader),
         batch_size=batch, warmup_epochs=cfg.warmup_epochs,
         train_epochs=cfg.epochs, scaling=cfg.lrs)
     opt = optimizers.get_optimizer(cfg.optimizer, model.parameters(),
@@ -153,18 +204,22 @@ def main(argv=None):
         nbatches = len(train_reader)
         gen = generator(device, cfg.seed, epoch)
         end = time()
-        for i, (images, _labels) in enumerate(train_reader):
-            last_loss = train_step(state, images, gen)
-            if cfg.test and i > 10:
-                break
-            if i % cfg.print_freq == 0:
-                losses.update(float(last_loss[-1]), batch)
-                synchronize(device)
-                batch_time.update((time() - end) / cfg.print_freq)
-                end = time()
-                print(speed_line(epoch, i, nbatches, batch_time, losses, batch))
+        # the copy of batch i+1 overlaps step i; closing() stops the
+        # transfer thread and the loader's producer on the -t break
+        with closing(device_batches(train_reader, device, cfg.device_prefetch)) as batches:
+            for i, (images, _labels) in enumerate(batches):
+                last_loss = train_step(state, images, gen)
+                if cfg.test and i > 10:
+                    break
+                if i % cfg.print_freq == 0:
+                    losses.update(float(last_loss[-1]), batch)
+                    synchronize(device)
+                    batch_time.update((time() - end) / cfg.print_freq)
+                    end = time()
+                    print(speed_line(epoch, i, nbatches, batch_time, losses, batch))
         loss_history.append(losses.avg)
         total_time.update(batch_time.avg)
+        print_loader_stats(cfg, train_reader)
         train_reader.reset()
 
         # ---- validate (reference validate(), :751-904) ----
@@ -172,12 +227,13 @@ def main(argv=None):
         top1 = AverageMeter()
         top5 = AverageMeter()
         val_gen = generator(device, cfg.seed, 10_000 + epoch)
-        for i, (images, _labels) in enumerate(val_reader):
-            m = eval_step(state, images, val_gen)
-            top1.update(float(m["top1"]), batch)
-            top5.update(float(m["top5"]), batch)
-            if cfg.test and i > 10:
-                break
+        with closing(device_batches(val_reader, device)) as batches:
+            for i, (images, _labels) in enumerate(batches):
+                m = eval_step(state, images, val_gen)
+                top1.update(float(m["top1"]), batch)
+                top5.update(float(m["top5"]), batch)
+                if cfg.test and i > 10:
+                    break
         val_reader.reset()
         prec1, prec5 = top1.avg, top5.avg
         top1_acc_history.append(prec1)

@@ -26,19 +26,28 @@ validates, and ``--export-torch`` writes the model's ``state_dict``, which
 is the reference ``detr_CLA`` layout. ``--resume`` of a JAX checkpoint
 raises (its optax state is not carried yet).
 
-Not ported yet, and raising with the ROADMAP item: ``--dataset
-imagenet/mscoco``, ``--multislice``, ``--canvas-cache``.
+``--dataset imagenet|mscoco DATA`` and ``--canvas-cache`` read image files as
+the SimCLR driver does (:func:`~multimodal_active_ai_tpu_torch.
+contrastive_learning.build_reader`), the train reader shuffled each epoch
+(``DETR_Image_Classification.py:263``); the batches are copied to the
+device as they are used, and ``-v`` prints the loader's line after each
+train epoch.
+
+Not ported yet, and raising with the ROADMAP item: ``--multislice``.
 """
 
 from __future__ import annotations
 
 import os
+from contextlib import closing
 from time import time
 
 import torch
 
 from multimodal_active_ai_tpu_torch.config import DETRConfig, check_ported, parse_into
-from multimodal_active_ai_tpu_torch.contrastive_learning import build_reader, generator
+from multimodal_active_ai_tpu_torch.contrastive_learning import (
+    build_reader, generator, print_loader_stats)
+from multimodal_active_ai_tpu_torch.data.prefetch import device_batches
 from multimodal_active_ai_tpu_torch.device import resolve_device, synchronize
 from multimodal_active_ai_tpu_torch.models import detr as detr_models
 from multimodal_active_ai_tpu_torch.ops import retina
@@ -109,6 +118,8 @@ def main(argv=None):
 
     train_reader = build_reader(cfg, "train", device)
     val_reader = build_reader(cfg, "val", device)
+    if hasattr(train_reader, "shuffle"):
+        train_reader.shuffle = True     # DETR_Image_Classification.py:263
     batch = cfg.batch_size
     opt = detr_train.make_detr_optimizer(model, cfg.lr, cfg.lr_backbone, cfg.weight_decay,
                                          pretrained_backbone=pretrained)
@@ -124,12 +135,13 @@ def main(argv=None):
     def run_validation(stream: int) -> tuple[float, float]:
         top1, top5 = AverageMeter(), AverageMeter()
         gen = generator(device, cfg.seed, stream)
-        for i, (images, labels) in enumerate(val_reader):
-            m = eval_step(state, images, labels, gen)
-            top1.update(float(m["top1"]) * 100, batch)
-            top5.update(float(m["top5"]) * 100, batch)
-            if cfg.test and i > 10:
-                break
+        with closing(device_batches(val_reader, device)) as batches:
+            for i, (images, labels) in enumerate(batches):
+                m = eval_step(state, images, labels, gen)
+                top1.update(float(m["top1"]) * 100, batch)
+                top5.update(float(m["top5"]) * 100, batch)
+                if cfg.test and i > 10:
+                    break
         val_reader.reset()
         return top1.avg, top5.avg
 
@@ -145,16 +157,18 @@ def main(argv=None):
         nbatches = len(train_reader)
         gen = generator(device, cfg.seed, 30_000 + epoch)
         end = time()
-        for i, (images, labels) in enumerate(train_reader):
-            m = train_step(state, images, labels, gen)
-            if cfg.test and i > 10:
-                break
-            if i % cfg.print_freq == 0:
-                losses.update(float(m["loss_ce"]), batch)
-                synchronize(device)
-                batch_time.update((time() - end) / cfg.print_freq)
-                end = time()
-                print(speed_line(epoch, i, nbatches, batch_time, losses, batch))
+        with closing(device_batches(train_reader, device)) as batches:
+            for i, (images, labels) in enumerate(batches):
+                m = train_step(state, images, labels, gen)
+                if cfg.test and i > 10:
+                    break
+                if i % cfg.print_freq == 0:
+                    losses.update(float(m["loss_ce"]), batch)
+                    synchronize(device)
+                    batch_time.update((time() - end) / cfg.print_freq)
+                    end = time()
+                    print(speed_line(epoch, i, nbatches, batch_time, losses, batch))
+        print_loader_stats(cfg, train_reader)
         train_reader.reset()
         total_time.update(batch_time.avg)
 

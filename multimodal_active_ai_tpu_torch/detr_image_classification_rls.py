@@ -30,21 +30,27 @@ file holds no RMSprop state, so ``--dqn-resume`` restarts its second moment
 at 0, and the replay memory and the update coins start afresh. Like the
 JAX driver it ignores ``-e`` and ``--export-torch``.
 
-Not ported yet, and raising with the ROADMAP item: ``--dataset
-imagenet/mscoco``, ``--multislice``, ``--canvas-cache``.
+``--dataset imagenet|mscoco DATA`` and ``--canvas-cache`` read image files as
+the DETR driver does, the train reader shuffled each epoch; ``-v`` prints
+the loader's line after each train epoch.
+
+Not ported yet, and raising with the ROADMAP item: ``--multislice``.
 """
 
 from __future__ import annotations
 
 import copy
 import os
+from contextlib import closing
 from time import time
 
 import numpy as np
 import torch
 
 from multimodal_active_ai_tpu_torch.config import RLSConfig, check_ported, parse_into
-from multimodal_active_ai_tpu_torch.contrastive_learning import build_reader, generator
+from multimodal_active_ai_tpu_torch.contrastive_learning import (
+    build_reader, generator, print_loader_stats)
+from multimodal_active_ai_tpu_torch.data.prefetch import device_batches
 from multimodal_active_ai_tpu_torch.detr_image_classification import build_model, resume
 from multimodal_active_ai_tpu_torch.device import resolve_device, synchronize
 from multimodal_active_ai_tpu_torch.models.qnet import build_dqn
@@ -101,6 +107,8 @@ def main(argv=None):
 
     train_reader = build_reader(cfg, "train", device)
     val_reader = build_reader(cfg, "val", device)
+    if hasattr(train_reader, "shuffle"):
+        train_reader.shuffle = True     # as the DETR driver's
     batch = cfg.batch_size
     opt = detr_train.make_detr_optimizer(model, cfg.lr, cfg.lr_backbone, cfg.weight_decay,
                                          pretrained_backbone=pretrained)
@@ -133,26 +141,28 @@ def main(argv=None):
         batch_time, losses, dqn_losses = AverageMeter(), AverageMeter(), AverageMeter()
         gen, host_gen = generators(device, cfg.seed, 40_000 + epoch)
         end = time()
-        for i, (images, labels) in enumerate(train_reader):
-            draws = rls_train.draw_rollout(gen, host_gen, batch, cfg.num_fixations)
-            m, ro, reward = train_step(state, policy, images, labels, epoch, draws)
-            push_rollout(memory, ro, draws.num_fixs, reward, cfg.dense_replay)
-            # the `and` draws the coin only once the memory is full enough,
-            # so the coin stream is the JAX driver's
-            if (len(memory) >= cfg.dqn_batch_size
-                    and host_rng.uniform() < DQN_UPDATE_PROB):
-                loss = dqn_update(policy_state, target, memory.sample(cfg.dqn_batch_size))
-                dqn_losses.update(float(loss))
-            if cfg.test and i > 10:
-                break
-            if i % cfg.print_freq == 0:
-                losses.update(float(m["loss_ce"]), batch)
-                synchronize(device)
-                batch_time.update((time() - end) / cfg.print_freq)
-                end = time()
-                print(speed_line(epoch, i, len(train_reader), batch_time, losses, batch)
-                      + f"\tDQN-Loss {dqn_losses.avg:.6f}"
-                      + f"\tReward {float(m['reward_mean']):.3f}")
+        with closing(device_batches(train_reader, device)) as batches:
+            for i, (images, labels) in enumerate(batches):
+                draws = rls_train.draw_rollout(gen, host_gen, batch, cfg.num_fixations)
+                m, ro, reward = train_step(state, policy, images, labels, epoch, draws)
+                push_rollout(memory, ro, draws.num_fixs, reward, cfg.dense_replay)
+                # the `and` draws the coin only once the memory is full enough,
+                # so the coin stream is the JAX driver's
+                if (len(memory) >= cfg.dqn_batch_size
+                        and host_rng.uniform() < DQN_UPDATE_PROB):
+                    loss = dqn_update(policy_state, target, memory.sample(cfg.dqn_batch_size))
+                    dqn_losses.update(float(loss))
+                if cfg.test and i > 10:
+                    break
+                if i % cfg.print_freq == 0:
+                    losses.update(float(m["loss_ce"]), batch)
+                    synchronize(device)
+                    batch_time.update((time() - end) / cfg.print_freq)
+                    end = time()
+                    print(speed_line(epoch, i, len(train_reader), batch_time, losses, batch)
+                          + f"\tDQN-Loss {dqn_losses.avg:.6f}"
+                          + f"\tReward {float(m['reward_mean']):.3f}")
+        print_loader_stats(cfg, train_reader)
         train_reader.reset()
         total_time.update(batch_time.avg)
 
@@ -163,15 +173,16 @@ def main(argv=None):
         # draws, a paired same-budget comparison
         top1, top5, ptop1, ptop5 = (AverageMeter() for _ in range(4))
         vgen, vhost = generators(device, cfg.seed, 90_000 + epoch)
-        for i, (images, labels) in enumerate(val_reader):
-            draws = rls_train.draw_rollout(vgen, vhost, batch, cfg.num_fixations)
-            m = eval_step(state, policy, images, labels, draws)
-            pm = policy_eval_step(state, policy, images, labels, draws)
-            for meter, value in ((top1, m["top1"]), (top5, m["top5"]),
-                                 (ptop1, pm["top1"]), (ptop5, pm["top5"])):
-                meter.update(float(value) * 100, batch)
-            if cfg.test and i > 10:
-                break
+        with closing(device_batches(val_reader, device)) as batches:
+            for i, (images, labels) in enumerate(batches):
+                draws = rls_train.draw_rollout(vgen, vhost, batch, cfg.num_fixations)
+                m = eval_step(state, policy, images, labels, draws)
+                pm = policy_eval_step(state, policy, images, labels, draws)
+                for meter, value in ((top1, m["top1"]), (top5, m["top5"]),
+                                     (ptop1, pm["top1"]), (ptop5, pm["top5"])):
+                    meter.update(float(value) * 100, batch)
+                if cfg.test and i > 10:
+                    break
         val_reader.reset()
         prec1, prec5 = top1.avg, top5.avg
 

@@ -26,19 +26,27 @@ validates, and ``--export-torch`` writes the probe's ``state_dict``, which
 is the reference layout. ``--resume`` of a JAX checkpoint raises
 (its optax state is not carried yet).
 
-Not ported yet, and raising with the ROADMAP item: ``--dataset
-imagenet/mscoco``, ``--multislice``, ``--canvas-cache``.
+``--dataset imagenet|mscoco DATA`` and ``--canvas-cache`` read image files as
+the SimCLR driver does (:func:`~multimodal_active_ai_tpu_torch.
+contrastive_learning.build_reader`); the batches are copied to the device
+as they are used, and ``-v`` prints the loader's line after each train
+epoch.
+
+Not ported yet, and raising with the ROADMAP item: ``--multislice``.
 """
 
 from __future__ import annotations
 
 import os
+from contextlib import closing
 from time import time
 
 import torch
 
 from multimodal_active_ai_tpu_torch.config import EvalConfig, check_ported, parse_into
-from multimodal_active_ai_tpu_torch.contrastive_learning import build_reader, generator
+from multimodal_active_ai_tpu_torch.contrastive_learning import (
+    build_reader, epoch_examples, generator, print_loader_stats)
+from multimodal_active_ai_tpu_torch.data.prefetch import device_batches
 from multimodal_active_ai_tpu_torch.device import resolve_device, synchronize
 from multimodal_active_ai_tpu_torch.models.mlp import LogisticRegression
 from multimodal_active_ai_tpu_torch.models.resnet import encoder_feature_dim
@@ -92,7 +100,7 @@ def main(argv=None):
     val_reader = build_reader(cfg, "val", device)
     batch = cfg.batch_size
     sched = schedule.simclr_learning_rate(
-        cfg.lr, batch, num_examples=train_reader.num_examples, batch_size=batch,
+        cfg.lr, batch, num_examples=epoch_examples(train_reader), batch_size=batch,
         warmup_epochs=cfg.warmup_epochs, train_epochs=cfg.epochs, scaling=cfg.lrs)
     opt = optimizers.get_optimizer(cfg.optimizer, probe.parameters(), cfg.momentum,
                                    cfg.weight_decay)
@@ -121,12 +129,13 @@ def main(argv=None):
     def run_validation(stream: int) -> tuple[float, float]:
         top1, top5 = AverageMeter(), AverageMeter()
         gen = generator(device, cfg.seed, stream)
-        for i, (images, labels) in enumerate(val_reader):
-            m = eval_step(state, encoder, images, labels, gen)
-            top1.update(float(m["top1"]) * 100, batch)
-            top5.update(float(m["top5"]) * 100, batch)
-            if cfg.test and i > 10:
-                break
+        with closing(device_batches(val_reader, device)) as batches:
+            for i, (images, labels) in enumerate(batches):
+                m = eval_step(state, encoder, images, labels, gen)
+                top1.update(float(m["top1"]) * 100, batch)
+                top5.update(float(m["top5"]) * 100, batch)
+                if cfg.test and i > 10:
+                    break
         val_reader.reset()
         return top1.avg, top5.avg
 
@@ -142,16 +151,18 @@ def main(argv=None):
         nbatches = len(train_reader)
         gen = generator(device, cfg.seed, 20_000 + epoch)
         end = time()
-        for i, (images, labels) in enumerate(train_reader):
-            m = train_step(state, encoder, images, labels, gen)
-            if cfg.test and i > 10:
-                break
-            if i % cfg.print_freq == 0:
-                losses.update(float(m["loss"]), batch)
-                synchronize(device)
-                batch_time.update((time() - end) / cfg.print_freq)
-                end = time()
-                print(speed_line(epoch, i, nbatches, batch_time, losses, batch))
+        with closing(device_batches(train_reader, device)) as batches:
+            for i, (images, labels) in enumerate(batches):
+                m = train_step(state, encoder, images, labels, gen)
+                if cfg.test and i > 10:
+                    break
+                if i % cfg.print_freq == 0:
+                    losses.update(float(m["loss"]), batch)
+                    synchronize(device)
+                    batch_time.update((time() - end) / cfg.print_freq)
+                    end = time()
+                    print(speed_line(epoch, i, nbatches, batch_time, losses, batch))
+        print_loader_stats(cfg, train_reader)
         train_reader.reset()
         total_time.update(batch_time.avg)
 

@@ -1,7 +1,8 @@
 """Packaging and the build directory of the port's CUDA kernels, on the CPU.
 
 An installed port must hold every file ``ops/cuda_build.py`` compiles
-(each ``csrc/*.cu`` and the headers they include) and every subpackage, and
+(each ``csrc/*.cu`` and the headers they include), the native JPEG
+decoder's source and Makefile (``data/native.py``) and every subpackage, and
 must build where its own ``csrc/build/`` cannot be written (a read-only
 ``site-packages``): there the libraries go to the user's cache under the
 same hashed names. The build runs here through a stand-in ``nvcc`` that
@@ -37,6 +38,17 @@ def test_package_data_ships_every_kernel_source_and_header():
     assert "csrc/stat_finish.cuh" in includes          # read by B2 and B3
     assert all((PACKAGE / f).is_file() for f in includes), includes
     assert sources | includes <= shipped, (sources | includes) - shipped
+
+
+def test_package_data_ships_the_native_decoder_sources():
+    """``data/native.py`` runs ``make -C runtime`` at first use: an
+    installed port needs the Makefile and every source it compiles."""
+    globs = _setuptools()["package-data"]["multimodal_active_ai_tpu_torch"]
+    shipped = {p.relative_to(PACKAGE).as_posix() for g in globs for p in PACKAGE.glob(g)}
+    makefile = (PACKAGE / "runtime" / "Makefile").read_text()
+    sources = {f"runtime/{name}" for name in re.findall(r"\b(\w+\.cc)\b", makefile)}
+    assert sources == {"runtime/loader.cc"}
+    assert sources | {"runtime/Makefile"} <= shipped, shipped
 
 
 def test_every_port_subpackage_is_packaged():

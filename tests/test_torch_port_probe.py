@@ -328,8 +328,7 @@ def test_driver_evaluate_only(simclr_checkpoint, tmp_path, capsys):
     assert "##Top-1" in capsys.readouterr().out and 0 <= prec1 <= prec5 <= 100
 
 
-@pytest.mark.parametrize("flag", [["--canvas-cache", "c"], ["--dataset", "imagenet"],
-                                  ["--multislice"]])
+@pytest.mark.parametrize("flag", [["--multislice"]])
 def test_driver_refuses_unported_flags(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         driver.main(["x"] + PROBE_ARGS + flag)

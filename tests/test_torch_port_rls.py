@@ -648,7 +648,7 @@ def test_driver_chain_trains_checkpoints_and_resumes_on_cpu(simclr_checkpoint, t
     assert again["epoch"] == 2 and again["step"] == 2 * expected
 
 
-@pytest.mark.parametrize("flag", [["--dataset", "imagenet"], ["--multislice"]])
+@pytest.mark.parametrize("flag", [["--multislice"]])
 def test_driver_refuses_unported_flags(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         driver.main(["x"] + RLS_ARGS + flag)

@@ -233,8 +233,7 @@ def test_driver_trains_checkpoints_and_resumes_on_cpu(tmp_path, capsys):
     assert resumed.step == 4 * F
 
 
-@pytest.mark.parametrize("flag", [["--canvas-cache", "canvas_cache"], ["--dataset", "imagenet", "x"],
-                                  ["--multislice"], ["--unroll-fixations", "2"]])
+@pytest.mark.parametrize("flag", [["--multislice"], ["--unroll-fixations", "2"]])
 def test_driver_refuses_unported_flags(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP|unroll"):
         driver.main(DRIVER_ARGS + ["--device", "cpu"] + flag)

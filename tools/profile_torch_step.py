@@ -27,6 +27,18 @@ time, then one JSON line with the same numbers.
 statistics (the ``conv1x1_stats`` and ``stat_sums`` kernels), as the JAX
 package's bench takes ``BENCH_STATS`` and ``BENCH_NORM``.
 
+``--dataset imagenet --data DIR`` (``--path simclr`` or ``probe``) feeds
+every step from the drivers' file reader over ``DIR``'s ImageNet layout
+(``HostLoader``, ``-j`` decode threads, ``--canvas-cache``; on the SimCLR
+path copied ``--device-prefetch`` batches ahead, on the probe's when used,
+as the drivers do) instead of one synthetic batch on the card. Each step's
+time then includes the wait for its batch, which is reported beside the
+device busy time, so the host input's share of a step is measured:
+
+    python3 tools/profile_torch_step.py --dataset imagenet --data /path/to/imagenet
+    python3 tools/profile_torch_step.py --path probe --dataset imagenet --data DIR \
+        --canvas-cache /tmp/canvas
+
 Needs CUDA; it raises without it.
 """
 
@@ -39,12 +51,16 @@ import os
 import subprocess
 import sys
 import time
+from contextlib import closing
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
 
 from multimodal_active_ai_tpu_torch.coco_captions_probe import caption_tokens  # noqa: E402
+from multimodal_active_ai_tpu_torch.config import ContrastiveConfig, parse_into  # noqa: E402
+from multimodal_active_ai_tpu_torch.contrastive_learning import build_reader  # noqa: E402
+from multimodal_active_ai_tpu_torch.data.prefetch import device_batches  # noqa: E402
 from multimodal_active_ai_tpu_torch.detr_image_classification_rls import push_rollout  # noqa: E402
 from multimodal_active_ai_tpu_torch.device import resolve_device  # noqa: E402
 from multimodal_active_ai_tpu_torch.models.detr import DETR  # noqa: E402
@@ -129,7 +145,16 @@ def main(argv=None) -> int:
     ap.add_argument("--no-bf16", dest="bf16", action="store_false")
     ap.add_argument("--stat-fusion", default="", choices=["", "gram", "pallas"])
     ap.add_argument("--norm-kind", default="bn", choices=["bn", "bn_fused"])
+    ap.add_argument("--dataset", default="synthetic", choices=["synthetic", "imagenet"],
+                    help="'imagenet': feed the steps from the file reader over --data")
+    ap.add_argument("--data", default="", help="ImageNet-layout folder")
+    ap.add_argument("--canvas-cache", default="", help="the reader's canvas cache directory")
+    ap.add_argument("-j", "--workers", type=int, default=4, help="the reader's decode threads")
+    ap.add_argument("--device-prefetch", type=int, default=2,
+                    help="batches copied ahead on the simclr path")
     args = ap.parse_args(argv)
+    if args.dataset != "synthetic" and args.path not in ("simclr", "probe"):
+        ap.error("--dataset imagenet feeds the simclr and probe paths only")
 
     device = resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -154,7 +179,10 @@ def main(argv=None) -> int:
         model = model.to(device).to(memory_format=torch.channels_last)
         state = simclr_train.TrainState(model, optimizers.get_optimizer("adam", model.parameters()),
                                         schedule.simclr_learning_rate(0.01, b, 64 * b, b, 10, 190))
-        step = simclr_train.make_train_step(cfg, f, 0.05)
+        simclr_step = simclr_train.make_train_step(cfg, f, 0.05)
+
+        def step(state, images, labels, gen):
+            return simclr_step(state, images, gen)
     elif args.path == "probe":
         encoder = SimCLRModule(arch=args.arch, dtype=dtype, generator=seeded)
         encoder = encoder.to(device).to(memory_format=torch.channels_last).eval()
@@ -164,7 +192,7 @@ def main(argv=None) -> int:
                                         schedule.simclr_learning_rate(1e-7, b, 64 * b, b, 10, 90))
         probe_step = eval_probe.make_probe_train_step(cfg, f)
 
-        def step(state, images, gen):
+        def step(state, images, labels, gen):
             return probe_step(state, encoder, images, labels, gen)
     elif args.path == "caption":
         encoder = SimCLRModule(arch=args.arch, generator=seeded)
@@ -177,7 +205,7 @@ def main(argv=None) -> int:
         cap_step = caption_probe.make_caption_probe_train_step(cfg, f, 0.05)
         tokens = caption_tokens(labels, 32768, 32)
 
-        def step(state, images, gen):
+        def step(state, images, labels, gen):
             return cap_step(state, encoder, images, tokens, gen)
     else:
         model = DETR(args.arch, dtype=dtype, generator=seeded)
@@ -188,7 +216,7 @@ def main(argv=None) -> int:
         if args.path == "detr":
             detr_step = detr_train.make_detr_train_step(SetCriterion(10, 1000), cfg, f, 0.1)
 
-            def step(state, images, gen):
+            def step(state, images, labels, gen):
                 return detr_step(state, images, labels, gen)
         else:
             policy = build_dqn("ResNet18", 100, dtype=dtype, generator=seeded)
@@ -203,18 +231,53 @@ def main(argv=None) -> int:
             dqn_update = rls_train.make_dqn_update_step(100, 0.999)
             host_gen = torch.Generator().manual_seed(0)
 
-            def step(state, images, gen):
+            def step(state, images, labels, gen):
                 draws = rls_train.draw_rollout(gen, host_gen, b, f)._replace(coins=(1.0,) * f)
                 _, ro, reward = rls_step(state, policy, images, labels, 1, draws)
                 push_rollout(memory, ro, draws.num_fixs, reward, False)
                 if len(memory) >= 256:
                     dqn_update(pstate, target, memory.sample(256))
 
+    waits: list[float] = []
+    if args.dataset == "synthetic":
+        def feed():
+            return images, labels
+    else:
+        reader = build_reader(parse_into(ContrastiveConfig, [
+            args.data, "--dataset", args.dataset, "-b", str(b), "--canvas-size", str(s),
+            "-j", str(args.workers), "--canvas-cache", args.canvas_cache]), "train", device)
+        depth = args.device_prefetch if args.path == "simclr" else 0
+
+        def epochs():
+            while True:
+                with closing(device_batches(reader, device, depth)) as batches:
+                    yield from batches
+                reader.reset()
+
+        source = epochs()
+
+        def feed():
+            """The next batch on the card, and the host time waited for it."""
+            t0 = time.perf_counter()
+            batch = next(source)
+            waits.append((time.perf_counter() - t0) * 1e3)
+            return batch
+
+    def fed_step():
+        step(state, *feed(), gen)
+
     for _ in range(2):                       # warm-up (cuDNN plans, allocator)
-        step(state, images, gen)
+        fed_step()
     torch.cuda.synchronize()
-    times = timed(lambda: step(state, images, gen), args.steps)
-    kernels, memory_ops, busy_ms, traced_ms = trace(lambda: step(state, images, gen))
+    waits.clear()
+    times = timed(fed_step, args.steps)
+    kernels, memory_ops, busy_ms, traced_ms = trace(fed_step)
+    if args.dataset != "synthetic":
+        source.close()
+        wait_ms = sorted(waits[:-1])[len(waits[:-1]) // 2]
+        print(f"input: {reader.stats_line()} (the loader's epoch so far); the step's wait "
+              f"for its batch: median {wait_ms:.1f} ms of the timed steps "
+              f"{[round(w, 1) for w in waits[:-1]]}, {waits[-1]:.1f} ms in the traced step")
     by_group: dict[str, float] = {}
     by_name: dict[str, list] = {}
     for e in kernels:
@@ -226,7 +289,7 @@ def main(argv=None) -> int:
     median = times[len(times) // 2]
     print(f"[{gpu}] {args.path} {args.arch} b={b} F={f} canvas {s} "
           f"{'bf16' if bf16 else 'f32'} norm {args.norm_kind} stat-fusion "
-          f"{args.stat_fusion or 'none'}: step {median:.1f} ms (median of "
+          f"{args.stat_fusion or 'none'}, {args.dataset} input: step {median:.1f} ms (median of "
           f"{[round(t, 1) for t in times]}); traced step {traced_ms:.1f} ms "
           f"(host-side profiler overhead included); device busy {busy_ms:.1f} ms "
           f"= {100 * busy_ms / median:.1f}% of the untraced median step; "
@@ -239,6 +302,10 @@ def main(argv=None) -> int:
     for name, (ms, n) in top:
         print(f"  {ms:9.2f} ms  {n:5d}x  {name[:110]}")
     extra = {}
+    if args.dataset != "synthetic":
+        extra["input"] = {"dataset": args.dataset, "decoder": reader.decoder,
+                          "wait_ms": wait_ms, "wait_ms_all": waits[:-1],
+                          "traced_wait_ms": waits[-1], "loader": reader.stats_line()}
     if args.path == "rls":
         # the DQN update alone, on the same replay memory
         def update():

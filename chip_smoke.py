@@ -83,6 +83,20 @@ result line):
    a step. The driver steps on files beside the synthetic ones of phases 3
    and 3c, the loader's produce and wait per batch, the peak memory and the
    phase's seconds.
+3h. Data parallelism, as jobs of 2 ranks started with ``python -m
+   torch.distributed.run`` (each rank this script with ``--rank-job``):
+   NCCL where the machine has 2 cards, else 2 ranks sharing the one card
+   over gloo (printed). (a) The SimCLR driver at the phase-3 width, ``-b
+   128`` a rank (global 256), ``--multislice``; (b) B1 launched 35 times on
+   each rank, B2-B4 never, both ranks' weights bit-identical and equal to
+   the checkpoint rank 0 alone writes, the losses finite; a 1-rank job
+   runs the port's collectives on the card over NCCL. (c) A float32
+   ResNet10 step at 2 ranks x 4 rows equals the 1-rank step of the 8 rows
+   on the card. (d) The probe, DETR, RLS and caption drivers at 2 ranks, 2
+   train steps each, from the phase-3 checkpoint: B1 per rank as each path
+   launches it, rank 0 alone writing. (e) The step time a rank, the global
+   img/s and the peak memory beside the card's name and power limit,
+   labelled when the ranks share a card.
 4. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX. It exits non-zero without CUDA, and when the
@@ -1710,6 +1724,321 @@ def run_stat_fusion_paths(torch, counters, driver, ckpt_mod, device_name):
             "hat_sample": got["hat_sample"], "pallas_ms": pallas_ms, "bn_fused_ms": fused_ms}
 
 
+# ---------------------------------------------------------------------------
+# phase 3h: data parallelism. Jobs of several ranks started with torchrun
+# (``python -m torch.distributed.run``), each rank this script in its
+# ``--rank-job`` mode, which writes what it saw to ``<outdir>/rank<r>.pt``.
+
+DIST_EXAMPLES = 2 * BATCH      # the downstream jobs: 2 train steps, 1 eval batch a rank
+
+
+def run_ranks(torch, nproc: int, kind: str, outdir: str, argv: list[str],
+              timeout: float = 600.0):
+    """A torchrun job of ``nproc`` ranks of ``--rank-job kind outdir argv``;
+    fails unless every rank exits 0 within ``timeout`` seconds. Kills the
+    whole process group of the job on the way out. Returns the job's output
+    and each rank's record."""
+    import signal
+    os.makedirs(outdir, exist_ok=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={nproc}", os.path.abspath(__file__), "--rank-job", kind,
+           outdir] + argv
+    p = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True, start_new_session=True)
+    try:
+        out, _ = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        out = ""
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    if p.returncode != 0:
+        fail(f"{nproc}-rank job {kind} exited {p.returncode}:\n{out[-6000:]}")
+    return out, [torch.load(os.path.join(outdir, f"rank{r}.pt"), weights_only=False)
+                 for r in range(nproc)]
+
+
+def _dist_small_step(torch, dev):
+    """The float32 ResNet10 SimCLR step of phase 3h(c) on this rank's rows
+    (b=4 a rank, global 8; F=2, canvas 64; Adam), its draws the global
+    batch's from one seeded generator on ``dev``: losses and weights."""
+    from multimodal_active_ai_tpu_torch import parallel
+    from multimodal_active_ai_tpu_torch.models.simclr import SimCLRModule
+    from multimodal_active_ai_tpu_torch.ops import retina
+    from multimodal_active_ai_tpu_torch.train import optimizers, schedule, simclr_train
+
+    images = torch.randint(0, 256, (8, 64, 64, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(3))
+    norm = "sync_bn" if parallel.world_size() > 1 else "bn"
+    model = SimCLRModule("ResNet10", norm_kind=norm,
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+    state = simclr_train.TrainState(model, optimizers.get_optimizer("adam", model.parameters()),
+                                    schedule.simclr_learning_rate(0.01, 8, 64, 8, 0, 5))
+    step = simclr_train.make_train_step(
+        retina.RetinaConfig(canvas_size=64, crop_sizes=(40, 24, 10, 30)), 2, 0.05)
+    losses = step(state, parallel.local_rows(images).to(dev),
+                  torch.Generator(device=dev).manual_seed(5))
+    return {"losses": losses.cpu(), "sd": {k: v.cpu() for k, v in model.state_dict().items()}}
+
+
+def _collective_ms(torch, dev) -> dict:
+    """Median host times of the collectives a SimCLR step makes, in this
+    job's process group on ``dev``: the all-reduce of a ResNet-50 SimCLR
+    model's gradient (one flat float32 buffer, F a step) and of one
+    BatchNorm layer's largest ``(Σx, Σx², count)`` vector (2·2048 + 1
+    floats; every train-mode BatchNorm forward and backward)."""
+    import torch.distributed as dist
+    from multimodal_active_ai_tpu_torch.models.simclr import SimCLRModule
+
+    with torch.device("meta"):
+        numel = sum(p.numel() for p in SimCLRModule(ARCH).parameters())
+    out = {"grad_floats": numel}
+    for name, n, reps in (("grad", numel, 5), ("bn", 2 * 2048 + 1, 51)):
+        x = torch.ones(n, device=dev)
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.all_reduce(x)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f"{name}_ms"] = sorted(times)[reps // 2]
+    return out
+
+
+DOWNSTREAM = {   # driver module, config class, checkpoints rank 0 writes, B1 a rank
+    "representation_evaluation": ("EvalConfig", ["classifier_checkpoint.pth.tar"], 2 + 1),
+    "detr_image_classification": ("DETRConfig", ["detr_classifier_checkpoint.pth.tar"], 2 + 1),
+    "detr_image_classification_rls": ("RLSConfig", ["detr_classifier_checkpoint.pth.tar",
+                                                    "dqn_checkpoint.pth.tar"],
+                                      2 * PROBE_FIXATIONS + 2 * PROBE_FIXATIONS),
+    "coco_captions_probe": ("CaptionProbeConfig", ["caption_probe_checkpoint.pth.tar"], 2 + 2),
+}
+
+
+def downstream_argv(name: str, simclr_ck: str) -> list[str]:
+    """The phase-3c-3f flags of a downstream driver at 2 train steps a rank
+    (its checkpoints in ``./<name>``, the rank's directory)."""
+    net = "-a" if name == "coco_captions_probe" else (
+        "--arch" if name == "representation_evaluation" else "--backbone")
+    argv = [simclr_ck, "--dataset", "synthetic", net, ARCH, "-b", str(BATCH), "-f",
+            str(PROBE_FIXATIONS), "--canvas-size", str(CANVAS), "--epochs", "1", "-t",
+            "--num-examples", str(DIST_EXAMPLES), "--checkpoint-dir", name, "-p", "1"]
+    return argv + (["--target-update-freq", "1"] if name.endswith("rls") else [])
+
+
+def rank_job(kind: str, outdir: str, argv: list[str]) -> int:
+    """One rank of a phase-3h job, in its own directory ``outdir/rank<r>``:
+
+    * ``simclr``: ``contrastive_learning.main(argv)`` (the user's entry
+      point, which joins and leaves the job's process group), with the
+      launch counters set to 0 just before and read just after, its peak
+      memory and final weights;
+    * ``equal``: :func:`_dist_small_step` in the job's process group;
+    * ``downstream``: the four downstream drivers' ``train`` in one process
+      group, each from the checkpoint ``argv[0]`` with its counters set to
+      0 just before and read just after;
+    * ``nccl``: the port's collectives on the card in a job of one rank
+      (NCCL): gather, sum, the differentiable gather and sum, and their
+      gradients."""
+    sys.path.insert(0, ROOT)
+    import torch
+    from multimodal_active_ai_tpu_torch import config, parallel
+    from multimodal_active_ai_tpu_torch.ops import conv1x1_stats as cs
+    from multimodal_active_ai_tpu_torch.ops import glimpse_sample as gs
+    from multimodal_active_ai_tpu_torch.ops import stat_sums as ss
+
+    counters = {"glimpse_sample": gs.glimpse_sample, "stat_sums": ss.stat_sums,
+                "conv1x1_stats": cs.conv1x1_stats, "hat_sample": gs.hat_sample}
+    rank = int(os.environ["RANK"])
+    rdir = os.path.join(outdir, f"rank{rank}")
+    os.makedirs(rdir, exist_ok=True)
+    os.chdir(rdir)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    record = {}
+    if kind == "simclr":
+        from multimodal_active_ai_tpu_torch import contrastive_learning as driver
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters.values())
+        state = driver.main(argv)
+        torch.cuda.synchronize()
+        record = {"launches": {k: c.launches for k, c in counters.items()},
+                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                  "sd": {k: v.cpu() for k, v in state.model.state_dict().items()}}
+    else:
+        dev = parallel.initialize_distributed("cuda")
+        import torch.distributed as dist
+        record["backend"] = dist.get_backend()
+        try:
+            if kind == "equal":
+                record.update(_dist_small_step(torch, dev))
+                record["collectives"] = _collective_ms(torch, dev)
+            elif kind == "downstream":
+                import importlib
+                for name, (cls, _, _) in DOWNSTREAM.items():
+                    module = importlib.import_module(f"{PACKAGE}.{name}")
+                    cfg = config.parse_into(getattr(config, cls), downstream_argv(name, argv[0]))
+                    reset_counts(counters.values())
+                    t0 = time.perf_counter()
+                    out = module.train(cfg, dev)
+                    torch.cuda.synchronize()
+                    state = out[0] if isinstance(out, tuple) else out
+                    record[name] = {"launches": {k: c.launches for k, c in counters.items()},
+                                    "steps": state.step, "wall_s": time.perf_counter() - t0}
+            elif kind == "nccl":
+                x = torch.randn(8, 16, device=dev, requires_grad=True)
+                gathered = parallel.cross_replica_concat(x)
+                summed = parallel.all_reduce_sum_with_grad(x * 2)
+                full = parallel.all_gather_with_grad(x * 3)
+                (gathered.sum() + summed.sum() + full.sum()).backward()
+                record.update({"gather": bool(torch.equal(gathered, x)),
+                               "sum": bool(torch.equal(summed, x * 2)),
+                               "full": bool(torch.equal(full, x * 3)),
+                               "grad": bool(torch.equal(x.grad, torch.full_like(x, 6.0))),
+                               "mean": bool(torch.equal(parallel.all_reduce_mean(x), x))})
+                torch.cuda.synchronize()
+        finally:
+            parallel.shutdown()
+    torch.save(record, os.path.join(outdir, f"rank{rank}.pt"))
+    return 0
+
+
+def _step_times(log: str) -> list[float]:
+    """The driver's per-step host times (``-p 1`` lines of rank 0), in ms."""
+    import re
+    return [float(t) * 1e3 for t in re.findall(r"^Epoch: \[\d+\]\[\d+/\d+\]\tTime ([\d.]+)",
+                                               log, re.M)]
+
+
+def run_multi_rank_path(torch, simclr_ck: str, workdir: str, device_name: str) -> dict:
+    """Phase 3h: the port as jobs of 2 ranks, one process each.
+
+    (a) The SimCLR driver at the main path's width (ResNet-50, ``-b 128`` a
+    rank, F=10, canvas 640, bf16, 3 train steps and validation), through
+    torchrun and ``contrastive_learning.main``: NCCL where the machine has 2
+    cards, else 2 ranks sharing the one card over gloo (printed). Then a
+    1-rank NCCL job runs the port's collectives on the card, so that NCCL's
+    init, all-reduce and all-gather launch there either way.
+    (b) Both ranks end with bit-identical weights, equal to rank 0's
+    checkpoint, which rank 0 alone writes; B1 launched ``steps·(1+F) +
+    2·eval_steps`` times on each rank, B2-B4 never; the losses finite.
+    (c) The float32 ResNet10 step at 2 ranks × 4 rows equals the 1-rank
+    step of the 8 rows on the card: losses to 1e-3 relative, weights in the
+    structure of the CPU tests' Adam tolerances.
+    (d) The four downstream drivers at 2 ranks, 2 train steps each, from
+    the phase-3 checkpoint: B1 per rank as each path launches it, B2-B4
+    never, rank 0 alone writing.
+    (e) Step time per rank, the global img/s and the peak memory, beside
+    the card's name and power limit; labelled when the ranks share a card
+    (no scaling figure)."""
+    cards = torch.cuda.device_count()
+    nproc = 2
+    shared = cards < nproc
+    how = ("2 ranks share the one card over gloo" if shared else "2 cards, NCCL")
+    torch.cuda.empty_cache()
+
+    # (a), (b): the SimCLR driver
+    outdir = os.path.join(workdir, "dist_simclr")
+    argv = ["--dataset", "synthetic", "--arch", ARCH, "-b", str(BATCH), "-f", str(FIXATIONS),
+            "--canvas-size", str(CANVAS), "--epochs", "1", "-t", "--num-examples",
+            str(EXAMPLES), "--checkpoint-dir", ".", "-p", "1", "--multislice"]
+    t0 = time.perf_counter()
+    log, ranks = run_ranks(torch, nproc, "simclr", outdir, argv)
+    wall = time.perf_counter() - t0
+    backend = "gloo" if shared else "nccl"
+    if f"backend {backend}" not in log:
+        fail(f"the 2-rank job did not report backend {backend}:\n{log[-3000:]}")
+    expected = TRAIN_STEPS * (1 + FIXATIONS) + 2 * EVAL_STEPS
+    want = {"glimpse_sample": expected, "stat_sums": 0, "conv1x1_stats": 0, "hat_sample": 0}
+    for r, rec in enumerate(ranks):
+        if rec["launches"] != want:
+            fail(f"rank {r} launches {rec['launches']}, expected {want}")
+    ck = os.path.join(outdir, "rank0", "checkpoint.pth.tar")
+    if not os.path.isfile(ck) or os.path.exists(os.path.join(outdir, "rank1",
+                                                             "checkpoint.pth.tar")):
+        fail("rank 0 alone must write the checkpoint")
+    payload = torch.load(ck, map_location="cpu", weights_only=False)
+    sd0, sd1 = ranks[0]["sd"], ranks[1]["sd"]
+    same = all(torch.equal(sd0[k], sd1[k]) and torch.equal(sd0[k], payload["state_dict"][k].cpu())
+               for k in sd0)
+    hist = payload["loss_history"]
+    if not same:
+        fail("the two ranks' weights differ, or differ from rank 0's checkpoint")
+    if not hist or not all(math.isfinite(x) for x in hist):
+        fail(f"non-finite loss history {hist}")
+    times = _step_times(log)
+    step_ms = sorted(times[1:])[len(times[1:]) // 2] if len(times) > 1 else float("nan")
+    peak = max(rec["peak_gib"] for rec in ranks)
+    print(f"2-rank SimCLR job ({how}; {ARCH}, b={BATCH} a rank, global {nproc * BATCH}, "
+          f"F={FIXATIONS}, canvas {CANVAS}, bf16, --multislice): glimpse_sample launches "
+          f"{[rec['launches']['glimpse_sample'] for rec in ranks]} a rank (expected {expected}),"
+          f" B2-B4 0; weights bit-identical on both ranks and in rank 0's checkpoint "
+          f"({len(sd0)} tensors), rank 1 wrote nothing; loss_history {hist}; wall {wall:.1f} s")
+    label = " (2 ranks on one card: not a scaling figure)" if shared else ""
+    print(f"2-rank SimCLR step{label}: {step_ms:.1f} ms a step a rank (median of steps 2-"
+          f"{len(times)}, {[round(t) for t in times]}), {nproc * BATCH / step_ms * 1e3:.1f} img/s "
+          f"global, peak memory {peak:.2f} GiB a rank [{device_name}]")
+
+    _, (nccl,) = run_ranks(torch, 1, "nccl", os.path.join(workdir, "dist_nccl"), [])
+    checks = {k: nccl[k] for k in ("gather", "sum", "full", "grad", "mean")}
+    print(f"1-rank job: backend {nccl['backend']}; collectives on the card {checks}")
+    if nccl["backend"] != "nccl" or not all(checks.values()):
+        fail(f"the 1-rank NCCL job: backend {nccl['backend']}, checks {checks}")
+
+    # (c): 2 ranks against 1 on the card
+    _, (e0, e1) = run_ranks(torch, nproc, "equal", os.path.join(workdir, "dist_equal"), [])
+    one = _dist_small_step(torch, torch.device("cuda"))
+    lr = 0.01 * 8 / 256
+    diffs = torch.cat([(e0["sd"][k] - v).abs().flatten() for k, v in one["sd"].items()
+                       if v.is_floating_point() and not k.endswith(("running_mean",
+                                                                    "running_var"))])
+    running = max(float((e0["sd"][k] - v).abs().max() / v.abs().max())
+                  for k, v in one["sd"].items() if k.endswith(("running_mean", "running_var")))
+    ranks_same = all(torch.equal(e0["sd"][k], e1["sd"][k]) for k in e0["sd"])
+    ok = (ranks_same and bool(torch.allclose(e0["losses"], one["losses"], rtol=1e-3, atol=0))
+          and float(diffs.max()) <= 4 * lr * 1.001 and float(diffs.median()) <= 1e-2 * lr
+          and float((diffs > lr / 10).float().mean()) <= 0.05 and running <= 5e-3)
+    print(f"small f32 ResNet10 step on the card, 2 ranks x 4 rows ({e0['backend']}) vs 1 rank x "
+          f"8 rows: losses {e0['losses'].tolist()} vs {one['losses'].tolist()} (rtol 1e-3); "
+          f"weights max {float(diffs.max()) / lr:.3g} lr, median {float(diffs.median()) / lr:.3g}"
+          f" lr, {float((diffs > lr / 10).float().mean()):.3%} above lr/10; running statistics "
+          f"{running:.3g} of their largest value; ranks bit-identical {ranks_same} "
+          f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("the 2-rank step on the card disagrees with the 1-rank step")
+    c = e0["collectives"]
+    n_bn = 53                                  # ResNet-50's BatchNorm layers
+    n_small = n_bn * (1 + FIXATIONS) + n_bn * FIXATIONS
+    modelled = FIXATIONS * c["grad_ms"] + n_small * c["bn_ms"]
+    print(f"{e0['backend']} all-reduce ({how}): "
+          f"the SimCLR gradient ({c['grad_floats']:,} floats, {4 * c['grad_floats'] / 1e6:.0f} "
+          f"MB) {c['grad_ms']:.1f} ms, a BatchNorm sum (4,097 floats) {c['bn_ms']:.3f} ms; a "
+          f"step makes {FIXATIONS} and {n_small}: {modelled:.0f} ms of collectives in the "
+          f"{step_ms:.0f} ms step [{device_name}]")
+
+    # (d): the downstream drivers
+    outdir = os.path.join(workdir, "dist_downstream")
+    t0 = time.perf_counter()
+    _, ranks = run_ranks(torch, nproc, "downstream", outdir, [simclr_ck])
+    for name, (_, files, b1) in DOWNSTREAM.items():
+        want = {"glimpse_sample": b1, "stat_sums": 0, "conv1x1_stats": 0, "hat_sample": 0}
+        got = [rec[name]["launches"] for rec in ranks]
+        written = [os.path.isfile(os.path.join(outdir, f"rank{r}", name, f))
+                   for r in range(nproc) for f in files]
+        print(f"2-rank {name}: launches {got[0]} a rank (expected {want}), updates "
+              f"{[rec[name]['steps'] for rec in ranks]}, {files} by rank 0 alone "
+              f"{written == [True] * len(files) + [False] * len(files)}, "
+              f"{ranks[0][name]['wall_s']:.1f} s")
+        if any(g != want for g in got):
+            fail(f"2-rank {name} launches {got}, expected {want}")
+        if written != [True] * len(files) + [False] * len(files):
+            fail(f"2-rank {name}: rank 0 alone must write {files}")
+    print(f"phase 3h(d) (four drivers at 2 ranks): {time.perf_counter() - t0:.1f} s")
+    return {"step_ms": step_ms, "peak_gib": peak, "how": how}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PACKAGE)):
         fail(f"{PACKAGE}/ is not beside chip_smoke.py; run it from the repository root")
@@ -1775,6 +2104,10 @@ def main() -> int:
         real = run_real_files_path(torch, counters, workdir, device_name)
         print(f"phase 3g (image folder, exactness, SimCLR, its resume, probe twice, "
               f"captions): {time.perf_counter() - t3g:.1f} s")
+        t3h = time.perf_counter()
+        dist = run_multi_rank_path(torch, simclr_ck, workdir, device_name)
+        print(f"phase 3h (2-rank SimCLR, 1-rank NCCL, 2 vs 1 on the card, four drivers at 2 "
+              f"ranks): {time.perf_counter() - t3h:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     rows["conv1x1_stats"]["launches"] = fused["conv1x1_stats"]
@@ -1807,6 +2140,13 @@ def main() -> int:
           f"{[round(t) for t in real['probe_warm']]}, synthetic (phase 3c) {probe_ms:.1f} ms; "
           f"peak memory {real['peak_gib']:.2f} GiB in the SimCLR run [{device_name}]")
 
+    label = " (2 ranks on one card: not a scaling figure)" if "share" in dist["how"] else ""
+    print(f"2-rank SimCLR step ({dist['how']}; {ARCH}, b={BATCH} a rank, F={FIXATIONS}, canvas "
+          f"{CANVAS}, bf16){label}: {dist['step_ms']:.1f} ms a rank, "
+          f"{2 * BATCH / dist['step_ms'] * 1e3:.1f} img/s global, peak memory "
+          f"{dist['peak_gib']:.2f} GiB a rank; 1-rank step (phase 3) {bn_ms:.1f} ms "
+          f"[{device_name}]")
+
     # phase 4: results
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
@@ -1818,4 +2158,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-job"]:
+        sys.exit(rank_job(sys.argv[2], sys.argv[3], sys.argv[4:]))
     sys.exit(main())

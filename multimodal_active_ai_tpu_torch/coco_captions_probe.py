@@ -41,6 +41,14 @@ the captions (capped at ``--vocab-size``), or the resumed checkpoint's,
 with a warning when the captions would build another. ``-v`` prints the
 loader's line after each train epoch. As in the JAX driver, the eval loop
 reads the train images.
+
+On N GPUs it runs as N processes, one a card (``python -m
+torch.distributed.run --nproc-per-node N -m ...``, or the JAX package's
+``MAAI_*`` variables; ``parallel/distributed.py``): ``-b`` is the per-rank
+batch, each rank reads its own shard, the InfoNCE and the retrieval span
+the global batch (``train/caption_probe.py``), rank 0 alone prints and
+writes checkpoints, and every rank reads the pretrained model and
+``--resume``.
 """
 
 from __future__ import annotations
@@ -53,17 +61,19 @@ from time import time
 
 import torch
 
+from multimodal_active_ai_tpu_torch import parallel
 from multimodal_active_ai_tpu_torch.config import CaptionProbeConfig, check_ported, parse_into
 from multimodal_active_ai_tpu_torch.contrastive_learning import generator, print_loader_stats
 from multimodal_active_ai_tpu_torch.data.loader import HostLoader
 from multimodal_active_ai_tpu_torch.data.prefetch import device_batches
 from multimodal_active_ai_tpu_torch.data.readers import list_coco_images, list_image_folder
 from multimodal_active_ai_tpu_torch.data.synthetic import SyntheticReader
-from multimodal_active_ai_tpu_torch.device import resolve_device, synchronize
+from multimodal_active_ai_tpu_torch.device import synchronize
 from multimodal_active_ai_tpu_torch.models.resnet import encoder_feature_dim
 from multimodal_active_ai_tpu_torch.models.simclr import SimCLRModule
 from multimodal_active_ai_tpu_torch.models.text import TextEncoder, Vocabulary, tokenize
 from multimodal_active_ai_tpu_torch.ops import retina
+from multimodal_active_ai_tpu_torch.parallel import print0
 from multimodal_active_ai_tpu_torch.representation_evaluation import load_pretrained_encoder
 from multimodal_active_ai_tpu_torch.train import caption_probe, optimizers
 from multimodal_active_ai_tpu_torch.train.simclr_train import TrainState
@@ -181,7 +191,15 @@ def main(argv=None):
     run's vocabulary (None unless the resumed checkpoint carries one)."""
     cfg = parse_into(CaptionProbeConfig, argv, prog="COCO_Captions_Probe")
     check_ported(cfg)
-    device = resolve_device(cfg.device)
+    device = parallel.initialize_distributed(cfg.device)
+    try:
+        return train(cfg, device)
+    finally:
+        parallel.shutdown()
+
+
+def train(cfg, device: torch.device):
+    """``main``'s run on this rank's ``device``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -193,13 +211,15 @@ def main(argv=None):
     load_pretrained_encoder(encoder, cfg.model, device)
     captions = None
     if cfg.dataset == "synthetic":
+        # each shard contributes distinct rows of the global batch
         reader = SyntheticReader(cfg.batch_size, cfg.canvas_size,
                                  num_examples=cfg.num_examples or 16 * cfg.batch_size,
-                                 seed=cfg.seed, device=device)
+                                 seed=cfg.seed + 7919 * parallel.rank(), device=device)
     else:
         files, captions = caption_catalog(cfg)
         reader = HostLoader(files, list(range(len(files))), batch_size=cfg.batch_size,
                             canvas_size=cfg.canvas_size, shuffle=True, seed=cfg.seed,
+                            shard_id=parallel.rank(), num_shards=parallel.world_size(),
                             num_threads=cfg.workers, cache_dir=cfg.canvas_cache or None,
                             pin_memory=device.type == "cuda")
 
@@ -208,25 +228,25 @@ def main(argv=None):
     if cfg.resume and os.path.isfile(cfg.resume):
         payload = ckpt.load_checkpoint(cfg.resume)
     elif cfg.resume:
-        print(f"=> no checkpoint found at '{cfg.resume}'")
+        print0(f"=> no checkpoint found at '{cfg.resume}'")
     if payload is not None and "vocab_words_u8" in payload:
         # the saved embedding is indexed by this word→id map: restore it
         # rather than trust the captions on disk to rebuild it identically
         # (synthetic captions are still hashed, as in the JAX driver)
         vocab = Vocabulary.from_u8(payload["vocab_words_u8"], max_len=cfg.max_len)
-        print(f"caption vocabulary: {vocab.size} entries, from the checkpoint")
+        print0(f"caption vocabulary: {vocab.size} entries, from the checkpoint")
         if captions is not None:
             rebuilt = Vocabulary.build(captions, max_size=cfg.vocab_size, max_len=cfg.max_len)
             if rebuilt.words != vocab.words:
-                print("WARNING: caption corpus changed since the checkpoint was written "
-                      f"({rebuilt.size} vs {vocab.size} entries); using the checkpoint's "
-                      "vocabulary")
+                print0("WARNING: caption corpus changed since the checkpoint was written "
+                       f"({rebuilt.size} vs {vocab.size} entries); using the checkpoint's "
+                       "vocabulary")
     elif captions is not None:
         vocab = Vocabulary.build(captions, max_size=cfg.vocab_size, max_len=cfg.max_len)
     if captions is not None:
         text_vocab_size = vocab.size
-        print(f"caption vocabulary: {vocab.size} entries (cap {cfg.vocab_size}) over "
-              f"{len(captions)} captions")
+        print0(f"caption vocabulary: {vocab.size} entries (cap {cfg.vocab_size}) over "
+               f"{len(captions)} captions")
 
     feat_dim = encoder_feature_dim(cfg.arch) * 16 * cfg.num_fixations
     seeded = torch.Generator().manual_seed(cfg.seed + 1)
@@ -237,7 +257,7 @@ def main(argv=None):
                        lambda _: cfg.lr)
     if payload is not None:
         restore_towers(towers, payload, cfg.num_fixations, text_vocab_size)
-        print(f"=> resumed caption probe from '{cfg.resume}' (epoch {int(payload['epoch'])})")
+        print0(f"=> resumed caption probe from '{cfg.resume}' (epoch {int(payload['epoch'])})")
 
     train_step = caption_probe.make_caption_probe_train_step(
         retina_cfg, cfg.num_fixations, cfg.temperature)
@@ -265,8 +285,8 @@ def main(argv=None):
                 if i % cfg.print_freq == 0:
                     losses.update(float(m["loss"]))
                     synchronize(device)
-                    print(f"Epoch: [{epoch}][{i}/{len(reader)}]\tLoss {losses.val:.6f} "
-                          f"({losses.avg:.6f})\tTime {(time() - end) / cfg.print_freq:.3f}")
+                    print0(f"Epoch: [{epoch}][{i}/{len(reader)}]\tLoss {losses.val:.6f} "
+                           f"({losses.avg:.6f})\tTime {(time() - end) / cfg.print_freq:.3f}")
                     end = time()
         print_loader_stats(cfg, reader)
         reader.reset()
@@ -278,14 +298,15 @@ def main(argv=None):
                 for k in meters:
                     meters[k].update(float(m[k]))
         reader.reset()
-        print(f"##I2T Top-1 {meters['i2t_top1'].avg}\n##I2T Top-5 {meters['i2t_top5'].avg}\n"
-              f"##T2I Top-1 {meters['t2i_top1'].avg}\n##T2I Top-5 {meters['t2i_top5'].avg}")
+        print0(f"##I2T Top-1 {meters['i2t_top1'].avg}\n##I2T Top-5 {meters['i2t_top5'].avg}\n"
+               f"##T2I Top-1 {meters['t2i_top1'].avg}\n##T2I Top-5 {meters['t2i_top5'].avg}")
         out = {"epoch": epoch + 1, "state_dict": towers.state_dict(),
                "vocab_size": text_vocab_size}
         if vocab is not None:
-            print(f"##Vocab {vocab.size} OOV-rate {vocab.oov_rate:.4f}")
+            print0(f"##Vocab {vocab.size} OOV-rate {vocab.oov_rate:.4f}")
             out["vocab_words_u8"] = torch.from_numpy(vocab.to_u8())
-        ckpt.save_checkpoint(out, False, filename=ckpt_file, best_filename=best_file)
+        if parallel.is_main():
+            ckpt.save_checkpoint(out, False, filename=ckpt_file, best_filename=best_file)
         if cfg.test:
             break
     return state, vocab

@@ -71,7 +71,7 @@ class ContrastiveConfig:
     num_examples: int = _flag("--num-examples", default=0,
                               help="synthetic dataset size when --dataset synthetic")
     multislice: bool = _flag("--multislice", default=False, action="store_true",
-                             help="multi-host mesh (not ported: raises)")
+                             help="print the nodes x local-ranks layout (multi-node)")
     export_torch: str = _flag("--export-torch", default="",
                               help="also write a reference-layout .pth.tar "
                                    "checkpoint to this path")
@@ -133,7 +133,7 @@ class EvalConfig:
     num_examples: int = _flag("--num-examples", default=0)
     num_classes: int = _flag("--num-classes", default=1000)
     multislice: bool = _flag("--multislice", default=False, action="store_true",
-                             help="multi-host mesh (not ported: raises)")
+                             help="print the nodes x local-ranks layout (multi-node)")
     export_torch: str = _flag("--export-torch", default="",
                               help="also write a reference-layout .pth.tar "
                                    "checkpoint to this path")
@@ -190,7 +190,7 @@ class DETRConfig:
     num_examples: int = _flag("--num-examples", default=0)
     num_classes: int = _flag("--num-classes", default=1000)
     multislice: bool = _flag("--multislice", default=False, action="store_true",
-                             help="multi-host mesh (not ported: raises)")
+                             help="print the nodes x local-ranks layout (multi-node)")
     export_torch: str = _flag("--export-torch", default="",
                               help="also write a reference-layout .pth.tar "
                                    "checkpoint to this path")
@@ -264,9 +264,6 @@ class CaptionProbeConfig:
 def check_ported(cfg) -> None:
     """Refuse every flag value of a driver config whose feature is not
     ported yet, naming the ROADMAP item."""
-    if getattr(cfg, "multislice", False):
-        raise NotImplementedError(
-            "--multislice is not ported yet (ROADMAP A6: multi-GPU, DDP/SyncBN)")
     if getattr(cfg, "unroll_fixations", 0) != 0:
         raise NotImplementedError(
             "--unroll-fixations tunes the JAX scan; the eager fixation loop "

@@ -9,9 +9,22 @@ epoch / ``-t`` / validate / checkpoint flow and the same ``Speed`` and
         --epochs 1 -t --num-examples 384 --checkpoint-dir /tmp/ckpt
 
 It runs on ``--device cuda`` (the default; it raises if CUDA is absent) or
-``--device cpu``. Single process: ``-b`` is the whole batch. Checkpoints are
-``checkpoint.pth.tar`` / ``model_best.pth.tar`` in ``--checkpoint-dir``;
-``--resume`` takes one of them.
+``--device cpu``. Checkpoints are ``checkpoint.pth.tar`` /
+``model_best.pth.tar`` in ``--checkpoint-dir``; ``--resume`` takes one of
+them.
+
+On N GPUs it is one process per card::
+
+    python -m torch.distributed.run --nproc-per-node N \\
+        -m multimodal_active_ai_tpu_torch.contrastive_learning ...
+
+(or the JAX package's ``MAAI_NUM_PROCESSES``/``MAAI_COORDINATOR``/
+``MAAI_PROCESS_ID``; see ``parallel/distributed.py``). ``-b`` is the
+per-rank batch and the global batch ``N·b``, as in the reference and the
+JAX driver: each rank reads its own shard (the synthetic reader seeded per
+shard), the encoder's BatchNorm is ``sync_bn``, the learning rate is scaled
+by the global batch, and rank 0 alone prints and writes checkpoints; every
+rank reads ``--resume``. ``--multislice`` prints the nodes × ranks layout.
 
 ``--stat-fusion pallas|gram`` takes the Bottleneck 1×1 convs' BatchNorm
 statistics from the convs themselves (``models/conv_bn.py``; ``pallas`` is
@@ -31,8 +44,8 @@ decoded canvases for later epochs and runs (the JAX package's cache format).
 ``-v`` prints the loader's line (decoder, produce and wait ms a batch,
 decodes, cache hits) after each train epoch.
 
-Not ported yet, and raising with the ROADMAP item: ``--multislice``
-(multi-GPU).
+``--stat-fusion pallas`` is single-device, as in the JAX driver: at world >
+1 it raises the JAX driver's refusal (``gram`` works at any world size).
 """
 
 from __future__ import annotations
@@ -43,14 +56,17 @@ from time import time
 
 import torch
 
+from multimodal_active_ai_tpu_torch import parallel
 from multimodal_active_ai_tpu_torch.config import ContrastiveConfig, check_ported, parse_into
 from multimodal_active_ai_tpu_torch.data.loader import HostLoader
 from multimodal_active_ai_tpu_torch.data.prefetch import device_batches
 from multimodal_active_ai_tpu_torch.data.readers import list_coco_images, list_image_folder
 from multimodal_active_ai_tpu_torch.data.synthetic import SyntheticReader
-from multimodal_active_ai_tpu_torch.device import resolve_device, synchronize
+from multimodal_active_ai_tpu_torch.device import synchronize
+from multimodal_active_ai_tpu_torch.models.norm import refuse_multi_device
 from multimodal_active_ai_tpu_torch.models.simclr import SimCLRModule
 from multimodal_active_ai_tpu_torch.ops import retina
+from multimodal_active_ai_tpu_torch.parallel import print0
 from multimodal_active_ai_tpu_torch.train import optimizers, schedule, simclr_train
 from multimodal_active_ai_tpu_torch.utils import checkpoint as ckpt
 from multimodal_active_ai_tpu_torch.utils.meters import AverageMeter, perf_line, speed_line
@@ -61,22 +77,26 @@ def generator(device: torch.device, seed: int, stream: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed * 100_003 + stream)
 
 
-def build_reader(cfg, split: str, device: torch.device):
+def build_reader(cfg, split: str, device: torch.device, shard_id: int = 0,
+                 num_shards: int = 1):
     """The train or val reader (pipe1/pipe3, ``Contrastive_Learning.py:289-409``)
-    of any driver config: the synthetic reader, made on ``device`` (labels in
-    the config's ``num_classes``, 1000 for SimCLR), or a
+    of any driver config, for shard ``shard_id`` of ``num_shards`` (a
+    rank's): the synthetic reader, made on ``device`` (labels in the
+    config's ``num_classes``, 1000 for SimCLR) and seeded per shard, or a
     :class:`~multimodal_active_ai_tpu_torch.data.loader.HostLoader` over
-    the ``mscoco`` or ``imagenet`` folder at ``cfg.data``, the JAX driver's
-    layouts and fallbacks, pinned when ``device`` is CUDA. A missing data
-    directory raises ``FileNotFoundError``."""
+    the shard's contiguous slice of the ``mscoco`` or ``imagenet`` folder at
+    ``cfg.data``, the JAX driver's layouts and fallbacks, pinned when
+    ``device`` is CUDA. A missing data directory raises
+    ``FileNotFoundError``."""
     bs = cfg.batch_size
     if cfg.dataset == "synthetic":
         n = cfg.num_examples or 64 * bs
         if split != "train":
             n = max(n // 10, bs)
+        # each shard contributes distinct rows of the global batch
         return SyntheticReader(bs, cfg.canvas_size, num_examples=n,
                                num_classes=getattr(cfg, "num_classes", 1000),
-                               seed=cfg.seed + (0 if split == "train" else 1),
+                               seed=cfg.seed + (0 if split == "train" else 1) + 7919 * shard_id,
                                device=device)
     if not cfg.data or not os.path.isdir(cfg.data):
         raise FileNotFoundError(f"--dataset {cfg.dataset}: no data directory at {cfg.data!r}")
@@ -95,6 +115,7 @@ def build_reader(cfg, split: str, device: torch.device):
                 os.path.join(cfg.data, sub)) else cfg.data
         files, labels, _ = list_image_folder(file_root)
     return HostLoader(files, labels, batch_size=bs, canvas_size=cfg.canvas_size,
+                      shard_id=shard_id, num_shards=num_shards,
                       seed=cfg.seed, num_threads=cfg.workers,
                       cache_dir=cfg.canvas_cache or None, pin_memory=device.type == "cuda")
 
@@ -107,9 +128,9 @@ def epoch_examples(reader) -> int:
 
 
 def print_loader_stats(cfg, reader) -> None:
-    """Under ``-v``, a file reader's line for the epoch just read."""
+    """Under ``-v``, a file reader's line for the epoch just read (rank 0's)."""
     if cfg.verbose and isinstance(reader, HostLoader):
-        print(reader.stats_line())
+        print0(reader.stats_line())
 
 
 def main(argv=None):
@@ -117,14 +138,25 @@ def main(argv=None):
     if not cfg.data and cfg.dataset != "synthetic":
         raise Exception("error: No data set provided")
     check_ported(cfg)
-    device = resolve_device(cfg.device)
+    device = parallel.initialize_distributed(cfg.device, cfg.multislice, cfg.verbose)
+    try:
+        return train(cfg, device)
+    finally:
+        parallel.shutdown()
+
+
+def train(cfg, device: torch.device):
+    """``main``'s run on this rank's ``device``."""
+    if cfg.stat_fusion == "pallas":
+        refuse_multi_device("--stat-fusion pallas", "--stat-fusion gram")
     # float32 means float32: TF32 stays off for products and convolutions;
     # --bf16 is the fast path (autocast)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    global_batch, batch = parallel.per_process_batch(cfg.batch_size)
     if cfg.verbose:
         name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-        print(f"device: {device} ({name}), batch {cfg.batch_size}")
+        print0(f"device: {device} ({name}), global batch {global_batch} ({batch}/rank)")
 
     retina_cfg = retina.RetinaConfig(
         canvas_size=cfg.canvas_size,
@@ -135,18 +167,21 @@ def main(argv=None):
         saturation=cfg.saturation)
 
     dtype = torch.bfloat16 if cfg.bf16 else torch.float32
-    model = SimCLRModule(arch=cfg.arch, norm_kind="bn", dtype=dtype,
+    # sync_bn: the global batch's statistics, as plain BatchNorm under GSPMD
+    norm_kind = "sync_bn" if parallel.world_size() > 1 else "bn"
+    model = SimCLRModule(arch=cfg.arch, norm_kind=norm_kind, dtype=dtype,
                          stat_fusion=cfg.stat_fusion or None,
                          generator=torch.Generator().manual_seed(cfg.seed))
     model = model.to(device)
     if device.type == "cuda":
         model = model.to(memory_format=torch.channels_last)
 
-    train_reader = build_reader(cfg, "train", device)
-    val_reader = build_reader(cfg, "val", device)
-    batch = cfg.batch_size
+    shard = (parallel.rank(), parallel.world_size())   # this rank's shard
+    train_reader = build_reader(cfg, "train", device, *shard)
+    val_reader = build_reader(cfg, "val", device, *shard)
+    # linear-scaled by the global batch; epoch_examples/batch steps an epoch
     sched = schedule.simclr_learning_rate(
-        cfg.lr, batch, num_examples=epoch_examples(train_reader),
+        cfg.lr, global_batch, num_examples=epoch_examples(train_reader),
         batch_size=batch, warmup_epochs=cfg.warmup_epochs,
         train_epochs=cfg.epochs, scaling=cfg.lrs)
     opt = optimizers.get_optimizer(cfg.optimizer, model.parameters(),
@@ -167,7 +202,7 @@ def main(argv=None):
 
     if cfg.resume:
         if os.path.isfile(cfg.resume):
-            print(f"=> loading checkpoint '{cfg.resume}'")
+            print0(f"=> loading checkpoint '{cfg.resume}'")
             payload = ckpt.load_resume(cfg.resume, map_location=device)
             model.load_state_dict(payload["state_dict"])
             opt.load_state_dict(payload["optimizer"])
@@ -178,22 +213,22 @@ def main(argv=None):
             top1_acc_history = list(payload["top1_acc_history"])
             top5_acc_history = list(payload["top5_acc_history"])
             total_time.load_state_dict(payload["total_time"])
-            print(f"=> loaded checkpoint '{cfg.resume}' (epoch {start_epoch})")
-            print(f"Model best precision saved was {best_prec1}")
+            print0(f"=> loaded checkpoint '{cfg.resume}' (epoch {start_epoch})")
+            print0(f"Model best precision saved was {best_prec1}")
         else:
-            print(f"=> no checkpoint found at '{cfg.resume}'")
+            print0(f"=> no checkpoint found at '{cfg.resume}'")
 
     if cfg.plot_training_history:
-        print("training-history figure: not ported (ROADMAP: the rest); "
-              "printing the histories")
-        print("loss_history:", loss_history)
-        print("top1_acc_history:", top1_acc_history)
-        print("top5_acc_history:", top5_acc_history)
+        print0("training-history figure: not ported (ROADMAP: the rest); "
+               "printing the histories")
+        print0("loss_history:", loss_history)
+        print0("top1_acc_history:", top1_acc_history)
+        print0("top5_acc_history:", top5_acc_history)
         hours = int(total_time.sum / 3600)
         minutes = int((total_time.sum % 3600) / 60)
         seconds = int((total_time.sum % 3600) % 60)
-        print(f"The total training time was {hours} hours {minutes} minutes "
-              f"and {seconds} seconds")
+        print0(f"The total training time was {hours} hours {minutes} minutes "
+               f"and {seconds} seconds")
         return state
 
     epoch = start_epoch - 1
@@ -212,11 +247,11 @@ def main(argv=None):
                 if cfg.test and i > 10:
                     break
                 if i % cfg.print_freq == 0:
-                    losses.update(float(last_loss[-1]), batch)
+                    losses.update(float(last_loss[-1]), global_batch)
                     synchronize(device)
                     batch_time.update((time() - end) / cfg.print_freq)
                     end = time()
-                    print(speed_line(epoch, i, nbatches, batch_time, losses, batch))
+                    print0(speed_line(epoch, i, nbatches, batch_time, losses, global_batch))
         loss_history.append(losses.avg)
         total_time.update(batch_time.avg)
         print_loader_stats(cfg, train_reader)
@@ -230,8 +265,8 @@ def main(argv=None):
         with closing(device_batches(val_reader, device)) as batches:
             for i, (images, _labels) in enumerate(batches):
                 m = eval_step(state, images, val_gen)
-                top1.update(float(m["top1"]), batch)
-                top5.update(float(m["top5"]), batch)
+                top1.update(float(m["top1"]), global_batch)
+                top5.update(float(m["top5"]), global_batch)
                 if cfg.test and i > 10:
                     break
         val_reader.reset()
@@ -239,26 +274,27 @@ def main(argv=None):
         top1_acc_history.append(prec1)
         top5_acc_history.append(prec5)
 
-        print(f"From validation we have prec1 is {prec1} while best_prec1 "
-              f"is {best_prec1}")
+        print0(f"From validation we have prec1 is {prec1} while best_prec1 "
+               f"is {best_prec1}")
         is_best = prec1 > best_prec1
         best_prec1 = max(prec1, best_prec1)
-        ckpt.save_checkpoint({
-            "epoch": epoch + 1,
-            "step": state.step,
-            "state_dict": model.state_dict(),
-            "best_prec1": best_prec1,
-            "optimizer": opt.state_dict(),
-            "loss_history": [float(x) for x in loss_history],
-            "top1_acc_history": [float(x) for x in top1_acc_history],
-            "top5_acc_history": [float(x) for x in top5_acc_history],
-            "total_time": total_time.state_dict(),
-        }, is_best, filename=ckpt_file, best_filename=best_file)
-        print(perf_line(prec1, prec5, best_prec1, batch, total_time.avg))
+        if parallel.is_main():
+            ckpt.save_checkpoint({
+                "epoch": epoch + 1,
+                "step": state.step,
+                "state_dict": model.state_dict(),
+                "best_prec1": best_prec1,
+                "optimizer": opt.state_dict(),
+                "loss_history": [float(x) for x in loss_history],
+                "top1_acc_history": [float(x) for x in top1_acc_history],
+                "top5_acc_history": [float(x) for x in top5_acc_history],
+                "total_time": total_time.state_dict(),
+            }, is_best, filename=ckpt_file, best_filename=best_file)
+        print0(perf_line(prec1, prec5, best_prec1, global_batch, total_time.avg))
         if cfg.test:
             break
 
-    if cfg.export_torch:
+    if cfg.export_torch and parallel.is_main():
         # the model's state_dict already is the reference .pth.tar layout
         ckpt.save_checkpoint({
             "epoch": epoch + 1,
@@ -270,7 +306,7 @@ def main(argv=None):
             "top5_acc_history": [float(x) for x in top5_acc_history],
             "total_time": total_time.sum,
         }, False, filename=cfg.export_torch)
-        print(f"=> exported reference-layout checkpoint to '{cfg.export_torch}'")
+        print0(f"=> exported reference-layout checkpoint to '{cfg.export_torch}'")
 
     return state
 

@@ -33,7 +33,12 @@ contrastive_learning.build_reader`), the train reader shuffled each epoch
 device as they are used, and ``-v`` prints the loader's line after each
 train epoch.
 
-Not ported yet, and raising with the ROADMAP item: ``--multislice``.
+On N GPUs it runs as N processes, one a card (``python -m
+torch.distributed.run --nproc-per-node N -m ...``, or the JAX package's
+``MAAI_*`` variables; ``parallel/distributed.py``): ``-b`` is the per-rank
+batch, each rank reads its own shard, the step is the JAX step of the
+global batch (``train/``), rank 0 alone prints and writes checkpoints, and
+every rank reads the pretrained model and ``--resume``.
 """
 
 from __future__ import annotations
@@ -44,13 +49,15 @@ from time import time
 
 import torch
 
+from multimodal_active_ai_tpu_torch import parallel
 from multimodal_active_ai_tpu_torch.config import DETRConfig, check_ported, parse_into
 from multimodal_active_ai_tpu_torch.contrastive_learning import (
     build_reader, generator, print_loader_stats)
 from multimodal_active_ai_tpu_torch.data.prefetch import device_batches
-from multimodal_active_ai_tpu_torch.device import resolve_device, synchronize
+from multimodal_active_ai_tpu_torch.device import synchronize
 from multimodal_active_ai_tpu_torch.models import detr as detr_models
 from multimodal_active_ai_tpu_torch.ops import retina
+from multimodal_active_ai_tpu_torch.parallel import print0
 from multimodal_active_ai_tpu_torch.train import detr_train, optimizers
 from multimodal_active_ai_tpu_torch.train.simclr_train import TrainState
 from multimodal_active_ai_tpu_torch.utils import checkpoint as ckpt
@@ -62,13 +69,13 @@ def load_backbone(model: detr_models.DETR, path: str, device: torch.device) -> b
     BatchNorm statistics into the FrozenBatchNorm buffers. Returns whether
     this is a pretrained run (which decides the parameter groups)."""
     if not path or not os.path.isfile(path):
-        print(f"=> no pretrained backbone found at '{path}' - from-scratch run "
-              "(full lr on all parameters)")
+        print0(f"=> no pretrained backbone found at '{path}' - from-scratch run "
+               "(full lr on all parameters)")
         return False
-    print(f"=> loading pretrained backbone '{path}'")
+    print0(f"=> loading pretrained backbone '{path}'")
     payload = ckpt.load_checkpoint(path, map_location=device)
     ckpt.load_simclr_backbone(model.body, ckpt.simclr_state_dict(payload))
-    print(f"=> loaded pretrained backbone '{path}'")
+    print0(f"=> loaded pretrained backbone '{path}'")
     return True
 
 
@@ -99,28 +106,37 @@ def resume(cfg, state: TrainState, steps_per_epoch: int,
             state.optimizer.load_state_dict(payload["optimizer"])
         taken = optimizers.updates_taken(state.optimizer)
         state.step = start_epoch * steps_per_epoch if taken is None else taken
-        print(f"=> resumed from '{cfg.resume}' (epoch {start_epoch}, step {state.step})")
+        print0(f"=> resumed from '{cfg.resume}' (epoch {start_epoch}, step {state.step})")
         return start_epoch, float(payload["best_prec1"])
     if cfg.resume:
-        print(f"=> no checkpoint found at '{cfg.resume}'")
+        print0(f"=> no checkpoint found at '{cfg.resume}'")
     return cfg.start_epoch, 0.0
 
 
 def main(argv=None):
     cfg = parse_into(DETRConfig, argv, prog="DETR_Image_Classification")
     check_ported(cfg)
-    device = resolve_device(cfg.device)
+    device = parallel.initialize_distributed(cfg.device, cfg.multislice)
+    try:
+        return train(cfg, device)
+    finally:
+        parallel.shutdown()
+
+
+def train(cfg, device: torch.device):
+    """``main``'s run on this rank's ``device``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     retina_cfg = retina.RetinaConfig(canvas_size=cfg.canvas_size)
     model, criterion, pretrained = build_model(cfg, device)
 
-    train_reader = build_reader(cfg, "train", device)
-    val_reader = build_reader(cfg, "val", device)
+    shard = (parallel.rank(), parallel.world_size())   # this rank's shard
+    train_reader = build_reader(cfg, "train", device, *shard)
+    val_reader = build_reader(cfg, "val", device, *shard)
     if hasattr(train_reader, "shuffle"):
         train_reader.shuffle = True     # DETR_Image_Classification.py:263
-    batch = cfg.batch_size
+    global_batch, _ = parallel.per_process_batch(cfg.batch_size)
     opt = detr_train.make_detr_optimizer(model, cfg.lr, cfg.lr_backbone, cfg.weight_decay,
                                          pretrained_backbone=pretrained)
     state = TrainState(model, opt, detr_train.step_lr(len(train_reader), cfg.lr_drop))
@@ -138,8 +154,8 @@ def main(argv=None):
         with closing(device_batches(val_reader, device)) as batches:
             for i, (images, labels) in enumerate(batches):
                 m = eval_step(state, images, labels, gen)
-                top1.update(float(m["top1"]) * 100, batch)
-                top5.update(float(m["top5"]) * 100, batch)
+                top1.update(float(m["top1"]) * 100, global_batch)
+                top5.update(float(m["top5"]) * 100, global_batch)
                 if cfg.test and i > 10:
                     break
         val_reader.reset()
@@ -147,7 +163,7 @@ def main(argv=None):
 
     if cfg.evaluate:
         prec1, prec5 = run_validation(999)
-        print(f"##Top-1 {prec1}\n##Top-5 {prec5}")
+        print0(f"##Top-1 {prec1}\n##Top-5 {prec5}")
         return prec1, prec5
 
     total_time = AverageMeter()
@@ -163,11 +179,11 @@ def main(argv=None):
                 if cfg.test and i > 10:
                     break
                 if i % cfg.print_freq == 0:
-                    losses.update(float(m["loss_ce"]), batch)
+                    losses.update(float(m["loss_ce"]), global_batch)
                     synchronize(device)
                     batch_time.update((time() - end) / cfg.print_freq)
                     end = time()
-                    print(speed_line(epoch, i, nbatches, batch_time, losses, batch))
+                    print0(speed_line(epoch, i, nbatches, batch_time, losses, global_batch))
         print_loader_stats(cfg, train_reader)
         train_reader.reset()
         total_time.update(batch_time.avg)
@@ -175,22 +191,23 @@ def main(argv=None):
         prec1, prec5 = run_validation(70_000 + epoch)
         is_best = prec1 > best_prec1
         best_prec1 = max(prec1, best_prec1)
-        ckpt.save_checkpoint({"epoch": epoch + 1, "state_dict": model.state_dict(),
-                              "best_prec1": best_prec1, "optimizer": opt.state_dict()},
-                             is_best, filename=ckpt_file, best_filename=best_file)
-        perf = batch / total_time.avg if total_time.avg else float("nan")
-        print(f"##Top-1 {prec1}\n##Top-5 {prec5}\n##Best Top-1 saved {best_prec1}\n"
-              f"##Perf {perf}")
+        if parallel.is_main():
+            ckpt.save_checkpoint({"epoch": epoch + 1, "state_dict": model.state_dict(),
+                                  "best_prec1": best_prec1, "optimizer": opt.state_dict()},
+                                 is_best, filename=ckpt_file, best_filename=best_file)
+        perf = global_batch / total_time.avg if total_time.avg else float("nan")
+        print0(f"##Top-1 {prec1}\n##Top-5 {prec5}\n##Best Top-1 saved {best_prec1}\n"
+               f"##Perf {perf}")
         if cfg.test:
             break
 
-    if cfg.export_torch:
+    if cfg.export_torch and parallel.is_main():
         # the model's state_dict already is the reference detr_CLA layout
         ckpt.save_checkpoint({"epoch": epoch + 1,
                               "state_dict": {k: v.cpu() for k, v in model.state_dict().items()},
                               "best_prec1": best_prec1, "optimizer": None},
                              False, filename=cfg.export_torch)
-        print(f"=> exported reference-layout checkpoint to '{cfg.export_torch}'")
+        print0(f"=> exported reference-layout checkpoint to '{cfg.export_torch}'")
     return state
 
 

@@ -34,7 +34,15 @@ JAX driver it ignores ``-e`` and ``--export-torch``.
 the DETR driver does, the train reader shuffled each epoch; ``-v`` prints
 the loader's line after each train epoch.
 
-Not ported yet, and raising with the ROADMAP item: ``--multislice``.
+On N GPUs it runs as N processes, one a card (``python -m
+torch.distributed.run --nproc-per-node N -m ...``, or the JAX package's
+``MAAI_*`` variables; ``parallel/distributed.py``): ``-b`` is the per-rank
+batch, each rank reads its own shard, the step is the JAX step of the
+global batch (``train/``), rank 0 alone prints and writes checkpoints, and
+every rank reads the pretrained model and ``--resume``. Each rank keeps its
+own rows in its own replay ring, ``-dqnb`` is the global replay batch (each
+rank samples ``-dqnb / N``), the DQN's BatchNorm is ``sync_bn``, and the
+update coins and ε agree on every rank by seed.
 """
 
 from __future__ import annotations
@@ -47,14 +55,16 @@ from time import time
 import numpy as np
 import torch
 
+from multimodal_active_ai_tpu_torch import parallel
 from multimodal_active_ai_tpu_torch.config import RLSConfig, check_ported, parse_into
 from multimodal_active_ai_tpu_torch.contrastive_learning import (
     build_reader, generator, print_loader_stats)
 from multimodal_active_ai_tpu_torch.data.prefetch import device_batches
 from multimodal_active_ai_tpu_torch.detr_image_classification import build_model, resume
-from multimodal_active_ai_tpu_torch.device import resolve_device, synchronize
+from multimodal_active_ai_tpu_torch.device import synchronize
 from multimodal_active_ai_tpu_torch.models.qnet import build_dqn
 from multimodal_active_ai_tpu_torch.ops import retina
+from multimodal_active_ai_tpu_torch.parallel import print0
 from multimodal_active_ai_tpu_torch.rl.replay_memory import ReplayMemory
 from multimodal_active_ai_tpu_torch.train import detr_train, rls_train
 from multimodal_active_ai_tpu_torch.train.optimizers import get_optimizer
@@ -85,7 +95,15 @@ def push_rollout(memory: ReplayMemory, ro: rls_train.RolloutResult, num_fixs: in
 def main(argv=None):
     cfg = parse_into(RLSConfig, argv, prog="DETR_Image_Classification_RLS")
     check_ported(cfg)
-    device = resolve_device(cfg.device)
+    device = parallel.initialize_distributed(cfg.device, cfg.multislice)
+    try:
+        return train(cfg, device)
+    finally:
+        parallel.shutdown()
+
+
+def train(cfg, device: torch.device):
+    """``main``'s run on this rank's ``device``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -93,7 +111,9 @@ def main(argv=None):
     model, criterion, pretrained = build_model(cfg, device)
 
     # policy and target DQNs (RLS :417-427), RMSprop at --lr (RLS :445)
-    policy = build_dqn(cfg.dqn, cfg.num_of_actions, norm_kind="bn",
+    # sync_bn on several ranks: the statistics of the global replay batch
+    policy = build_dqn(cfg.dqn, cfg.num_of_actions,
+                       norm_kind="sync_bn" if parallel.world_size() > 1 else "bn",
                        dtype=torch.bfloat16 if cfg.bf16 else torch.float32,
                        generator=torch.Generator().manual_seed(cfg.seed + 1)).to(device)
     if device.type == "cuda":
@@ -105,11 +125,18 @@ def main(argv=None):
     memory = ReplayMemory(cfg.replay_memory_capacity, (g, g, retina_cfg.num_channels),
                           seed=cfg.seed, device=device)
 
-    train_reader = build_reader(cfg, "train", device)
-    val_reader = build_reader(cfg, "val", device)
+    shard = (parallel.rank(), parallel.world_size())   # this rank's shard
+    train_reader = build_reader(cfg, "train", device, *shard)
+    val_reader = build_reader(cfg, "val", device, *shard)
     if hasattr(train_reader, "shuffle"):
         train_reader.shuffle = True     # as the DETR driver's
-    batch = cfg.batch_size
+    global_batch, batch = parallel.per_process_batch(cfg.batch_size)
+    # -dqnb is the global Bellman batch: each rank samples its share from its
+    # own ring (root detr_image_classification_rls.py:115-126)
+    if cfg.dqn_batch_size % parallel.world_size():
+        raise ValueError(f"-dqnb {cfg.dqn_batch_size} must divide by the "
+                         f"{parallel.world_size()} processes it is sharded over")
+    dqn_batch = cfg.dqn_batch_size // parallel.world_size()
     opt = detr_train.make_detr_optimizer(model, cfg.lr, cfg.lr_backbone, cfg.weight_decay,
                                          pretrained_backbone=pretrained)
     state = TrainState(model, opt, detr_train.step_lr(len(train_reader), cfg.lr_drop))
@@ -131,9 +158,9 @@ def main(argv=None):
         policy.load_state_dict(payload["policy_state_dict"])
         target.load_state_dict(payload["target_state_dict"])
         policy_state.step = int(payload["step"])
-        print(f"=> resumed DQN from '{cfg.dqn_resume}' (step {policy_state.step})")
+        print0(f"=> resumed DQN from '{cfg.dqn_resume}' (step {policy_state.step})")
     elif cfg.dqn_resume:
-        print(f"=> no DQN checkpoint found at '{cfg.dqn_resume}'")
+        print0(f"=> no DQN checkpoint found at '{cfg.dqn_resume}'")
 
     host_rng = np.random.RandomState(cfg.seed)
     total_time = AverageMeter()
@@ -148,20 +175,21 @@ def main(argv=None):
                 push_rollout(memory, ro, draws.num_fixs, reward, cfg.dense_replay)
                 # the `and` draws the coin only once the memory is full enough,
                 # so the coin stream is the JAX driver's
-                if (len(memory) >= cfg.dqn_batch_size
+                if (len(memory) >= dqn_batch
                         and host_rng.uniform() < DQN_UPDATE_PROB):
-                    loss = dqn_update(policy_state, target, memory.sample(cfg.dqn_batch_size))
+                    loss = dqn_update(policy_state, target, memory.sample(dqn_batch))
                     dqn_losses.update(float(loss))
                 if cfg.test and i > 10:
                     break
                 if i % cfg.print_freq == 0:
-                    losses.update(float(m["loss_ce"]), batch)
+                    losses.update(float(m["loss_ce"]), global_batch)
                     synchronize(device)
                     batch_time.update((time() - end) / cfg.print_freq)
                     end = time()
-                    print(speed_line(epoch, i, len(train_reader), batch_time, losses, batch)
-                          + f"\tDQN-Loss {dqn_losses.avg:.6f}"
-                          + f"\tReward {float(m['reward_mean']):.3f}")
+                    print0(speed_line(epoch, i, len(train_reader), batch_time, losses,
+                                     global_batch)
+                           + f"\tDQN-Loss {dqn_losses.avg:.6f}"
+                           + f"\tReward {float(m['reward_mean']):.3f}")
         print_loader_stats(cfg, train_reader)
         train_reader.reset()
         total_time.update(batch_time.avg)
@@ -180,7 +208,7 @@ def main(argv=None):
                 pm = policy_eval_step(state, policy, images, labels, draws)
                 for meter, value in ((top1, m["top1"]), (top5, m["top5"]),
                                      (ptop1, pm["top1"]), (ptop5, pm["top5"])):
-                    meter.update(float(value) * 100, batch)
+                    meter.update(float(value) * 100, global_batch)
                 if cfg.test and i > 10:
                     break
         val_reader.reset()
@@ -188,16 +216,17 @@ def main(argv=None):
 
         is_best = prec1 > best_prec1
         best_prec1 = max(prec1, best_prec1)
-        ckpt.save_checkpoint({"epoch": epoch + 1, "state_dict": model.state_dict(),
-                              "best_prec1": best_prec1, "optimizer": opt.state_dict()},
-                             is_best, filename=ckpt_file, best_filename=best_file)
-        ckpt.save_checkpoint({"epoch": epoch + 1, "step": policy_state.step,
-                              "policy_state_dict": policy.state_dict(),
-                              "target_state_dict": target.state_dict()},
-                             False, filename=dqn_file)
-        perf = batch / total_time.avg if total_time.avg else float("nan")
-        print(f"##Top-1 {prec1}\n##Top-5 {prec5}\n##Policy Top-1 {ptop1.avg}\n"
-              f"##Policy Top-5 {ptop5.avg}\n##Best Top-1 saved {best_prec1}\n##Perf {perf}")
+        if parallel.is_main():
+            ckpt.save_checkpoint({"epoch": epoch + 1, "state_dict": model.state_dict(),
+                                  "best_prec1": best_prec1, "optimizer": opt.state_dict()},
+                                 is_best, filename=ckpt_file, best_filename=best_file)
+            ckpt.save_checkpoint({"epoch": epoch + 1, "step": policy_state.step,
+                                  "policy_state_dict": policy.state_dict(),
+                                  "target_state_dict": target.state_dict()},
+                                 False, filename=dqn_file)
+        perf = global_batch / total_time.avg if total_time.avg else float("nan")
+        print0(f"##Top-1 {prec1}\n##Top-5 {prec5}\n##Policy Top-1 {ptop1.avg}\n"
+               f"##Policy Top-5 {ptop5.avg}\n##Best Top-1 saved {best_prec1}\n##Perf {perf}")
         if cfg.test:
             break
     return state, policy_state

@@ -10,7 +10,10 @@ fast-variance statistics, running update ``0.9·r + 0.1·batch`` with the
 biased variance, eps from the norm layer. What changes is where the
 statistics come from: the ``conv1x1_stats`` kernel's epilogue
 (``impl='pallas'``) or the conv input through the gram identity
-(``impl='gram'``), never a separate pass over the conv's output.
+(``impl='gram'``), never a separate pass over the conv's output. With a
+:class:`~multimodal_active_ai_tpu_torch.models.norm.SyncBatchNorm` the
+``gram`` route's ``(Σy, Σy²)`` are summed over every rank; the ``pallas``
+route is single-device, as in the JAX package, and raises at world > 1.
 
 The layout helpers at the end are the port's own copy of the fused → unfused
 half of the JAX package's checkpoint-layout conversion (:110-174), which
@@ -23,7 +26,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from multimodal_active_ai_tpu_torch.models.norm import BatchNorm
+from multimodal_active_ai_tpu_torch.models.norm import BatchNorm, SyncBatchNorm, refuse_multi_device
 from multimodal_active_ai_tpu_torch.ops.conv1x1_stats import conv1x1_stats, gram_stats
 from multimodal_active_ai_tpu_torch.ops.stat_sums import mean_var_from_sums
 
@@ -45,6 +48,8 @@ def conv1x1_bn(x: torch.Tensor, conv: nn.Conv2d, bn: BatchNorm, impl: str) -> to
     """
     if impl not in IMPLS:
         raise ValueError(f"stat fusion impl {impl!r} not in {IMPLS}")
+    if impl == "pallas":
+        refuse_multi_device("--stat-fusion pallas", "--stat-fusion gram")
     dev = x.device.type
     dtype = torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else x.dtype
     stride = conv.stride[0]
@@ -61,7 +66,10 @@ def conv1x1_bn(x: torch.Tensor, conv: nn.Conv2d, bn: BatchNorm, impl: str) -> to
             mean, var = bn.running_mean, bn.running_var
         else:
             y, s, sq = (conv1x1_stats if impl == "pallas" else gram_stats)(xd, wd)
-            mean, var = mean_var_from_sums(s, sq, xd.shape[0])
+            n = xd.shape[0]
+            if isinstance(bn, SyncBatchNorm):
+                s, sq, n = bn.global_sums(s, sq, n)
+            mean, var = mean_var_from_sums(s, sq, n)
             bn.update_running(mean, var)
         out = bn.normalize(y, mean, var, dtype)
     return out.view(b, h, w, n_out).permute(0, 3, 1, 2)

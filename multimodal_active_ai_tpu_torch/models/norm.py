@@ -1,9 +1,8 @@
 """Norm layers with flax semantics.
 
-Port of the ``bn``, ``bn_fused``, ``frozen`` and ``group`` kinds of
-``multimodal_active_ai_tpu/models/norm.py``. ``bn`` and ``bn_fused``
-(``flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5)`` and
-``FusedStatsBatchNorm``) differ from
+Port of ``multimodal_active_ai_tpu/models/norm.py``. ``bn``, ``sync_bn``
+and ``bn_fused`` (``flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5)``,
+the same with ``axis_name``, and ``FusedStatsBatchNorm``) differ from
 ``torch.nn.BatchNorm2d`` where eval-mode outputs would otherwise diverge:
 
 * batch statistics are taken in float32 whatever the input dtype, with the
@@ -15,8 +14,15 @@ Port of the ``bn``, ``bn_fused``, ``frozen`` and ``group`` kinds of
 
 The buffers keep torch's names (``weight``, ``bias``, ``running_mean``,
 ``running_var``, ``num_batches_tracked``), so ``state_dict`` keys are those
-of the reference torch checkpoints, and the two kinds' ``state_dict``s are
-interchangeable.
+of the reference torch checkpoints, and the three kinds' ``state_dict``s
+are interchangeable.
+
+``sync_bn`` (:class:`SyncBatchNorm`) takes the statistics of the global
+batch, every rank's rows (``parallel/``): at world 1 it is ``bn``. It is
+not ``torch.nn.SyncBatchNorm``, whose unbiased running variance and
+Welford merge give other numbers than the JAX package's. ``bn_fused``
+launches the ``stat_sums`` kernel on one device only, as the JAX package
+does, and raises at world > 1.
 
 ``frozen`` (:class:`FrozenBatchNorm`, the DETR backbone's) holds all four
 tensors as buffers, as the reference's ``FrozenBatchNorm2d`` does, and
@@ -29,7 +35,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from multimodal_active_ai_tpu_torch.ops.stat_sums import batch_mean_var
+from multimodal_active_ai_tpu_torch.ops.stat_sums import batch_mean_var, mean_var_from_sums
+from multimodal_active_ai_tpu_torch.parallel import all_reduce_sum_with_grad, world_size
 
 
 class BatchNorm(nn.Module):
@@ -78,6 +85,43 @@ class BatchNorm(nn.Module):
         return ((x.to(torch.float32) - mean) * mul + self.bias).to(dtype)
 
 
+class SyncBatchNorm(BatchNorm):
+    """:class:`BatchNorm` whose training statistics are the global batch's:
+    each rank's float32 ``(Σx, Σx², count)`` are summed over the process
+    group by a differentiable all-reduce, so each rank's backward carries
+    every rank's cotangent of the global statistics. Same parameters,
+    buffers, one-pass variance and running update as ``bn``; at world 1
+    it is ``bn`` bit for bit. Every rank runs each train-mode forward."""
+
+    def _batch_stats(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        if world_size() == 1:
+            return super()._batch_stats(x)
+        xf = x.to(torch.float32)
+        dims = [0] + list(range(2, x.dim()))
+        s, sq, n = self.global_sums(xf.sum(dim=dims), (xf * xf).sum(dim=dims),
+                                    x.numel() // x.shape[1])
+        return mean_var_from_sums(s, sq, n)
+
+    @staticmethod
+    def global_sums(s: torch.Tensor, sq: torch.Tensor, n: int):
+        """``(Σx, Σx², rows)`` of one rank → the sums over every rank
+        (returned as they are at world 1)."""
+        if world_size() == 1:
+            return s, sq, n
+        count = torch.full((1,), float(n), dtype=s.dtype, device=s.device)
+        total = all_reduce_sum_with_grad(torch.cat([s, sq, count]))
+        c = s.shape[0]
+        return total[:c], total[c:2 * c], total[2 * c]
+
+
+def refuse_multi_device(what: str, instead: str) -> None:
+    """The JAX package's refusal of its single-device kernels on more than
+    one device (root ``contrastive_learning.py:131-136``)."""
+    if world_size() > 1:
+        raise SystemExit(f"{what} is single-device only; use {instead} on "
+                         "multi-device meshes")
+
+
 class FusedStatsBatchNorm(BatchNorm):
     """:class:`BatchNorm` whose batch statistics come from one
     :func:`~multimodal_active_ai_tpu_torch.ops.stat_sums.batch_mean_var`
@@ -89,6 +133,7 @@ class FusedStatsBatchNorm(BatchNorm):
     """
 
     def _batch_stats(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        refuse_multi_device("norm kind 'bn_fused'", "norm kind 'sync_bn'")
         return batch_mean_var(x.movedim(1, -1))
 
 
@@ -142,14 +187,9 @@ class GroupNormAdapter(nn.Module):
 
 def make_norm(kind: str):
     """Norm-layer factory, the analogue of the reference's ``norm_layer``:
-    ``'bn'``, ``'bn_fused'``, ``'frozen'`` or ``'group'``; ``'sync_bn'``
-    raises until the multi-GPU item."""
-    kinds = {"bn": BatchNorm, "bn_fused": FusedStatsBatchNorm,
+    ``'bn'``, ``'sync_bn'``, ``'bn_fused'``, ``'frozen'`` or ``'group'``."""
+    kinds = {"bn": BatchNorm, "sync_bn": SyncBatchNorm, "bn_fused": FusedStatsBatchNorm,
              "frozen": FrozenBatchNorm, "group": GroupNormAdapter}
     if kind in kinds:
         return kinds[kind]
-    if kind == "sync_bn":
-        raise NotImplementedError(
-            "norm kind 'sync_bn' is not ported yet (ROADMAP: multi-GPU, "
-            "DDP/SyncBN); use 'bn'")
     raise ValueError(f"unknown norm kind {kind!r}")

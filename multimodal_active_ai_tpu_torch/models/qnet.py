@@ -49,7 +49,8 @@ def build_dqn(arch: str = "ResNet18", num_of_actions: int = 100, norm_kind: str 
               dtype: torch.dtype = torch.float32,
               generator: torch.Generator | None = None) -> DQN:
     """Factory mirroring ``Q_net.build_dqn`` (``Q_net.py:45-104``); the RLS
-    driver builds ``norm_kind='bn'`` (``'sync_bn'`` raises until the
-    multi-GPU item)."""
+    driver builds ``norm_kind='bn'`` on one process and ``'sync_bn'`` (the
+    JAX ``DQN``'s default: statistics of the global replay batch) on
+    several."""
     return DQN(arch=arch, num_of_actions=num_of_actions, norm_kind=norm_kind,
                dtype=dtype, generator=generator)

@@ -131,7 +131,7 @@ class ResNet(nn.Module):
                  stat_fusion: str | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if stat_fusion and norm_kind not in ("bn", "bn_fused"):
+        if stat_fusion and norm_kind not in ("bn", "sync_bn", "bn_fused"):
             raise ValueError(f"stat_fusion embeds BatchNorm semantics; incompatible "
                              f"with norm_kind={norm_kind!r}")
         if stat_fusion and stat_fusion not in IMPLS:

@@ -1,21 +1,29 @@
-"""SimCLR NT-Xent contrastive objective (single process).
+"""SimCLR NT-Xent contrastive objective, over every rank's rows.
 
-Port of ``multimodal_active_ai_tpu/objectives/ntxent.py`` for
-``axis_name=None``: L2-normalise, aa/bb/ab/ba logit blocks with a
-``-LARGE_NUM`` self-mask, soft cross-entropy summed over both directions
-(reference ``SimCLR/Objective.py:17-125``).
+Port of ``multimodal_active_ai_tpu/objectives/ntxent.py``: L2-normalise,
+aa/bb/ab/ba logit blocks with a ``-LARGE_NUM`` self-mask, soft
+cross-entropy summed over both directions (reference
+``SimCLR/Objective.py:17-125``). On one process it is the ``axis_name=None``
+branch; with a process group of N ranks it is the ``axis_name`` branch
+(``ntxent.py:85-97``): both views are gathered from every rank, the labels
+are offset by ``rank·b`` and ``logits_ab`` is ``(b, N·b)``, so its top-k is
+the global retrieval. Each rank's loss is the mean over its own rows; the
+mean over ranks is the JAX loss of the global batch.
 
-``torch_gather_semantics=True`` (the default) detaches both "gathered"
+``torch_gather_semantics=True`` (the default) detaches both gathered
 operands, reproducing the gradient of the reference's N-rank run, where
 ``dist.all_gather`` is not differentiable: ``logits_bb = h2 @ h2.detach().T``,
 ``logits_ab = h1 @ h2.detach().T``, ``logits_ba = h2 @ h1.detach().T``.
-``False`` makes every operand differentiable.
+``False`` makes every operand differentiable, the gathered ones through
+:func:`~multimodal_active_ai_tpu_torch.parallel.all_gather_with_grad`.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from multimodal_active_ai_tpu_torch.parallel import all_gather_with_grad, cross_replica_concat, rank
 
 LARGE_NUM = 1e9
 
@@ -34,22 +42,28 @@ def _softmax_cross_entropy(targets: torch.Tensor, logits: torch.Tensor) -> torch
 def contrastive_loss(hidden1: torch.Tensor, hidden2: torch.Tensor,
                      hidden_norm: bool = True, temperature: float = 1.0,
                      torch_gather_semantics: bool = True):
-    """NT-Xent between two views ``(B, D)``; returns ``(loss, logits_ab,
-    labels)`` with ``logits_ab`` ``(B, B)`` and one-hot ``labels``
-    ``(B, 2B)``. The caller detaches ``hidden1`` where the reference does
-    (the SimCLR step passes the previous view detached)."""
+    """NT-Xent between two views ``(B, D)`` of this rank's rows; returns
+    ``(loss, logits_ab, labels)`` with ``logits_ab`` ``(B, N·B)`` and
+    one-hot ``labels`` ``(B, 2N·B)`` for N ranks. The caller detaches
+    ``hidden1`` where the reference does (the SimCLR step passes the
+    previous view detached)."""
     hidden1 = hidden1.to(torch.float32)
     hidden2 = hidden2.to(torch.float32)
     if hidden_norm:
         hidden1 = _l2_normalize(hidden1)
         hidden2 = _l2_normalize(hidden2)
     batch_size = hidden1.shape[0]
-    gather = torch.Tensor.detach if torch_gather_semantics else (lambda x: x)
+    if torch_gather_semantics:
+        def gather(x):
+            return cross_replica_concat(x, differentiable_local=False)
+    else:
+        gather = all_gather_with_grad
     hidden1_large = gather(hidden1)
     hidden2_large = gather(hidden2)
-    idx = torch.arange(batch_size, device=hidden1.device)
-    labels = F.one_hot(idx, batch_size * 2).to(torch.float32)
-    masks = F.one_hot(idx, batch_size).to(torch.float32)
+    enlarged = hidden1_large.shape[0]
+    idx = torch.arange(batch_size, device=hidden1.device) + rank() * batch_size
+    labels = F.one_hot(idx, enlarged * 2).to(torch.float32)
+    masks = F.one_hot(idx, enlarged).to(torch.float32)
 
     def sim(a, b):
         return (a @ b.T) / temperature

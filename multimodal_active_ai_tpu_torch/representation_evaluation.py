@@ -32,7 +32,12 @@ contrastive_learning.build_reader`); the batches are copied to the device
 as they are used, and ``-v`` prints the loader's line after each train
 epoch.
 
-Not ported yet, and raising with the ROADMAP item: ``--multislice``.
+On N GPUs it runs as N processes, one a card (``python -m
+torch.distributed.run --nproc-per-node N -m ...``, or the JAX package's
+``MAAI_*`` variables; ``parallel/distributed.py``): ``-b`` is the per-rank
+batch, each rank reads its own shard, the step is the JAX step of the
+global batch (``train/``), rank 0 alone prints and writes checkpoints, and
+every rank reads the pretrained model and ``--resume``.
 """
 
 from __future__ import annotations
@@ -43,15 +48,17 @@ from time import time
 
 import torch
 
+from multimodal_active_ai_tpu_torch import parallel
 from multimodal_active_ai_tpu_torch.config import EvalConfig, check_ported, parse_into
 from multimodal_active_ai_tpu_torch.contrastive_learning import (
     build_reader, epoch_examples, generator, print_loader_stats)
 from multimodal_active_ai_tpu_torch.data.prefetch import device_batches
-from multimodal_active_ai_tpu_torch.device import resolve_device, synchronize
+from multimodal_active_ai_tpu_torch.device import synchronize
 from multimodal_active_ai_tpu_torch.models.mlp import LogisticRegression
 from multimodal_active_ai_tpu_torch.models.resnet import encoder_feature_dim
 from multimodal_active_ai_tpu_torch.models.simclr import SimCLRModule
 from multimodal_active_ai_tpu_torch.ops import retina
+from multimodal_active_ai_tpu_torch.parallel import print0
 from multimodal_active_ai_tpu_torch.train import eval_probe, optimizers, schedule
 from multimodal_active_ai_tpu_torch.train.simclr_train import TrainState
 from multimodal_active_ai_tpu_torch.utils import checkpoint as ckpt
@@ -65,21 +72,29 @@ def load_pretrained_encoder(encoder: SimCLRModule, path: str,
     ``Representation_Evaluation.py:405-422``). Returns whether a
     checkpoint was loaded."""
     if not path or not os.path.isfile(path):
-        print(f"=> no checkpoint found at '{path}' (using random init)")
+        print0(f"=> no checkpoint found at '{path}' (using random init)")
         return False
-    print(f"=> loading checkpoint '{path}'")
+    print0(f"=> loading checkpoint '{path}'")
     payload = ckpt.load_checkpoint(path, map_location=device)
     encoder.f.load_state_dict(ckpt.encoder_state_dict(ckpt.simclr_state_dict(payload)))
-    print(f"=> loaded pretrained model '{path}'")
+    print0(f"=> loaded pretrained model '{path}'")
     return True
 
 
 def main(argv=None):
     cfg = parse_into(EvalConfig, argv, prog="Representation_Evaluation")
     check_ported(cfg)
+    device = parallel.initialize_distributed(cfg.device, cfg.multislice)
+    try:
+        return train(cfg, device)
+    finally:
+        parallel.shutdown()
+
+
+def train(cfg, device: torch.device):
+    """``main``'s run on this rank's ``device``."""
     if cfg.classifier != "logistic_regression":
         raise Exception(f"error: Unknown classifier {cfg.classifier}")
-    device = resolve_device(cfg.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -96,11 +111,12 @@ def main(argv=None):
     probe = LogisticRegression(feat_dim, cfg.num_classes,
                                generator=torch.Generator().manual_seed(cfg.seed + 1)).to(device)
 
-    train_reader = build_reader(cfg, "train", device)
-    val_reader = build_reader(cfg, "val", device)
-    batch = cfg.batch_size
+    shard = (parallel.rank(), parallel.world_size())   # this rank's shard
+    train_reader = build_reader(cfg, "train", device, *shard)
+    val_reader = build_reader(cfg, "val", device, *shard)
+    global_batch, batch = parallel.per_process_batch(cfg.batch_size)
     sched = schedule.simclr_learning_rate(
-        cfg.lr, batch, num_examples=epoch_examples(train_reader), batch_size=batch,
+        cfg.lr, global_batch, num_examples=epoch_examples(train_reader), batch_size=batch,
         warmup_epochs=cfg.warmup_epochs, train_epochs=cfg.epochs, scaling=cfg.lrs)
     opt = optimizers.get_optimizer(cfg.optimizer, probe.parameters(), cfg.momentum,
                                    cfg.weight_decay)
@@ -121,10 +137,10 @@ def main(argv=None):
             opt.load_state_dict(payload["optimizer"])
         taken = optimizers.updates_taken(opt)
         state.step = start_epoch * len(train_reader) if taken is None else taken
-        print(f"=> resumed classifier from '{cfg.resume}' (epoch {start_epoch}, "
-              f"step {state.step})")
+        print0(f"=> resumed classifier from '{cfg.resume}' (epoch {start_epoch}, "
+               f"step {state.step})")
     elif cfg.resume:
-        print(f"=> no checkpoint found at '{cfg.resume}'")
+        print0(f"=> no checkpoint found at '{cfg.resume}'")
 
     def run_validation(stream: int) -> tuple[float, float]:
         top1, top5 = AverageMeter(), AverageMeter()
@@ -132,8 +148,8 @@ def main(argv=None):
         with closing(device_batches(val_reader, device)) as batches:
             for i, (images, labels) in enumerate(batches):
                 m = eval_step(state, encoder, images, labels, gen)
-                top1.update(float(m["top1"]) * 100, batch)
-                top5.update(float(m["top5"]) * 100, batch)
+                top1.update(float(m["top1"]) * 100, global_batch)
+                top5.update(float(m["top5"]) * 100, global_batch)
                 if cfg.test and i > 10:
                     break
         val_reader.reset()
@@ -141,7 +157,7 @@ def main(argv=None):
 
     if cfg.evaluate:
         prec1, prec5 = run_validation(999)
-        print(f"##Top-1 {prec1}\n##Top-5 {prec5}")
+        print0(f"##Top-1 {prec1}\n##Top-5 {prec5}")
         return prec1, prec5
 
     total_time = AverageMeter()
@@ -157,11 +173,11 @@ def main(argv=None):
                 if cfg.test and i > 10:
                     break
                 if i % cfg.print_freq == 0:
-                    losses.update(float(m["loss"]), batch)
+                    losses.update(float(m["loss"]), global_batch)
                     synchronize(device)
                     batch_time.update((time() - end) / cfg.print_freq)
                     end = time()
-                    print(speed_line(epoch, i, nbatches, batch_time, losses, batch))
+                    print0(speed_line(epoch, i, nbatches, batch_time, losses, global_batch))
         print_loader_stats(cfg, train_reader)
         train_reader.reset()
         total_time.update(batch_time.avg)
@@ -169,22 +185,23 @@ def main(argv=None):
         prec1, prec5 = run_validation(50_000 + epoch)
         is_best = prec1 > best_prec1
         best_prec1 = max(prec1, best_prec1)
-        ckpt.save_checkpoint({"epoch": epoch + 1, "state_dict": probe.state_dict(),
-                              "best_prec1": best_prec1, "optimizer": opt.state_dict()},
-                             is_best, filename=ckpt_file, best_filename=best_file)
-        perf = batch / total_time.avg if total_time.avg else float("nan")
-        print(f"##Top-1 {prec1}\n##Top-5 {prec5}\n##Best Top-1 saved {best_prec1}\n"
-              f"##Perf {perf}")
+        if parallel.is_main():
+            ckpt.save_checkpoint({"epoch": epoch + 1, "state_dict": probe.state_dict(),
+                                  "best_prec1": best_prec1, "optimizer": opt.state_dict()},
+                                 is_best, filename=ckpt_file, best_filename=best_file)
+        perf = global_batch / total_time.avg if total_time.avg else float("nan")
+        print0(f"##Top-1 {prec1}\n##Top-5 {prec5}\n##Best Top-1 saved {best_prec1}\n"
+               f"##Perf {perf}")
         if cfg.test:
             break
 
-    if cfg.export_torch:
+    if cfg.export_torch and parallel.is_main():
         # the probe's state_dict already is the reference layout
         ckpt.save_checkpoint({"epoch": epoch + 1,
                               "state_dict": {k: v.cpu() for k, v in probe.state_dict().items()},
                               "best_prec1": best_prec1, "optimizer": None},
                              False, filename=cfg.export_torch)
-        print(f"=> exported reference-layout checkpoint to '{cfg.export_torch}'")
+        print0(f"=> exported reference-layout checkpoint to '{cfg.export_torch}'")
     return state
 
 

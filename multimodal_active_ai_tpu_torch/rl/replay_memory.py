@@ -15,7 +15,9 @@ gathers its rows with one index on the device.
 The sampled indices are drawn on the host with
 ``np.random.RandomState(seed).choice(size, n, replace=False)``, as the JAX
 ring draws them, so the same pushes and seed sample the same rows in both
-packages.
+packages. In a job of several ranks each rank keeps its own rows in its
+own ring, as each JAX process does (root
+``detr_image_classification_rls.py:191-202``).
 """
 
 from __future__ import annotations

@@ -14,6 +14,14 @@ view 1 = image and view 2 = caption, with every operand differentiable
 Randomness comes from an explicit ``torch.Generator`` (the fixations) and
 torch's own generator (the text tower's dropout); tests may hand in the
 fixations ``fix_yx`` ``(F·B, 2)``, view-major.
+
+With several ranks (``parallel/``) the fixations are drawn for the global
+batch and each rank keeps its rows; the InfoNCE gathers both towers'
+embeddings from every rank with their gradient, so each rank's backward
+carries every rank's cotangent of its rows; the gradient is averaged over
+the ranks before the update, and the metrics returned are the global
+batch's (retrieval over all ``N·B`` pairs). Dropout masks are each rank's
+own draws.
 """
 
 from __future__ import annotations
@@ -25,9 +33,11 @@ from multimodal_active_ai_tpu_torch.models.mlp import MLP
 from multimodal_active_ai_tpu_torch.models.text import TextEncoder
 from multimodal_active_ai_tpu_torch.objectives.ntxent import contrastive_loss
 from multimodal_active_ai_tpu_torch.ops import retina
+from multimodal_active_ai_tpu_torch.parallel import average_gradients
 from multimodal_active_ai_tpu_torch.train.eval_probe import extract_features
 from multimodal_active_ai_tpu_torch.train.optimizers import set_learning_rate
 from multimodal_active_ai_tpu_torch.train.simclr_train import TrainState
+from multimodal_active_ai_tpu_torch.utils.meters import mean_across_replicas
 from multimodal_active_ai_tpu_torch.utils.metrics import top_k_accuracy
 
 
@@ -70,10 +80,11 @@ def make_caption_probe_train_step(retina_cfg: retina.RetinaConfig, num_fixations
                                       torch_gather_semantics=False)
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        average_gradients(towers.parameters())
         set_learning_rate(opt, state.schedule(state.step))
         opt.step()
         state.step += 1
-        return {"loss": loss.detach()}
+        return mean_across_replicas({"loss": loss.detach()})
 
     return step
 
@@ -98,10 +109,10 @@ def make_caption_probe_eval_step(retina_cfg: retina.RetinaConfig, num_fixations:
                                                    torch_gather_semantics=False)
         _, logits_ti, _ = contrastive_loss(txt, img, temperature=temperature,
                                            torch_gather_semantics=False)
-        return {"loss": loss,
-                "i2t_top1": top_k_accuracy(logits_it, labels, 1),
-                "i2t_top5": top_k_accuracy(logits_it, labels, 5),
-                "t2i_top1": top_k_accuracy(logits_ti, labels, 1),
-                "t2i_top5": top_k_accuracy(logits_ti, labels, 5)}
+        return mean_across_replicas({"loss": loss,
+                                     "i2t_top1": top_k_accuracy(logits_it, labels, 1),
+                                     "i2t_top5": top_k_accuracy(logits_it, labels, 5),
+                                     "t2i_top1": top_k_accuracy(logits_ti, labels, 1),
+                                     "t2i_top5": top_k_accuracy(logits_ti, labels, 5)})
 
     return step

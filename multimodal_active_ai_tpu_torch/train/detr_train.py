@@ -23,6 +23,12 @@ The optimizer follows the JAX package's ``make_detr_optimizer``
 
 Randomness comes from an explicit ``torch.Generator``; tests may hand in
 ``num_fixs`` and the saccades instead.
+
+With several ranks (``parallel/``) ``num_fixs`` and the saccades are drawn
+for the global batch and each rank keeps its rows, every gradient (the
+``frozen`` ones too, which the clip's norm counts) is averaged over the
+ranks before the clip, as optax clips the gradient of the global batch,
+and the returned metrics are the global batch's.
 """
 
 from __future__ import annotations
@@ -30,8 +36,10 @@ from __future__ import annotations
 import torch
 
 from multimodal_active_ai_tpu_torch.ops import retina
+from multimodal_active_ai_tpu_torch.parallel import average_gradients, local_rows, world_size
 from multimodal_active_ai_tpu_torch.train.optimizers import get_optimizer
 from multimodal_active_ai_tpu_torch.train.simclr_train import TrainState
+from multimodal_active_ai_tpu_torch.utils.meters import mean_across_replicas
 from multimodal_active_ai_tpu_torch.utils.metrics import top_k_accuracy
 
 BODY = "backbone.0.body."
@@ -89,11 +97,13 @@ def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
 
 def apply_update(state: TrainState, loss: torch.Tensor, clip_max_norm: float) -> torch.Tensor:
     """One update of the DETR optimizer chain on ``loss``: backward, the
-    global-norm clip over every gradient, each group's StepLR rate, AdamW;
-    ``state.step`` advances by one. Returns the norm before clipping."""
+    gradient averaged over ranks, the global-norm clip over every gradient,
+    each group's StepLR rate, AdamW; ``state.step`` advances by one.
+    Returns the norm before clipping."""
     model, opt = state.model, state.optimizer
     model.zero_grad(set_to_none=True)
     loss.backward()
+    average_gradients(model.parameters())
     norm = clip_by_global_norm_(model.parameters(), clip_max_norm)
     factor = state.schedule(state.step)
     for group in opt.param_groups:
@@ -123,8 +133,9 @@ def collect_glimpse_sequence(images: torch.Tensor, retina_cfg: retina.RetinaConf
         num_fixs = torch.randint(min_fixations, num_fixations + 1, (),
                                  generator=generator, device=generator.device)
     if saccades is None:
-        saccades = torch.rand((num_fixations, batch, 2), generator=generator,
-                              device=generator.device).transpose(0, 1)
+        glob = torch.rand((num_fixations, batch * world_size(), 2), generator=generator,
+                          device=generator.device)
+        saccades = local_rows(glob, 1).transpose(0, 1)
     pyramid = retina.build_pyramid(images, retina_cfg)
     fix_xy = saccades.transpose(0, 1).reshape(num_fixations * batch, 2)
     params = retina.sample_labeled_params(None, num_fixations * batch, src,
@@ -154,8 +165,8 @@ def make_detr_train_step(criterion, retina_cfg: retina.RetinaConfig,
         state.model.train()
         losses = criterion(state.model(glimpses, sacc, mask)["pred_logits"], labels)
         norm = apply_update(state, losses["loss_ce"], clip_max_norm)
-        return {"loss_ce": losses["loss_ce"].detach(),
-                "class_error": losses["class_error"], "grad_norm": norm}
+        return mean_across_replicas({"loss_ce": losses["loss_ce"].detach(),
+                                     "class_error": losses["class_error"], "grad_norm": norm})
 
     return step
 
@@ -177,8 +188,8 @@ def make_detr_eval_step(criterion, retina_cfg: retina.RetinaConfig, num_fixation
         with torch.no_grad():
             pred = model(glimpses, sacc, mask)["pred_logits"]
         logits = pred.mean(dim=1)
-        return {"loss_ce": criterion(pred, labels)["loss_ce"],
-                "top1": top_k_accuracy(logits, labels, 1),
-                "top5": top_k_accuracy(logits, labels, 5)}
+        return mean_across_replicas({"loss_ce": criterion(pred, labels)["loss_ce"],
+                                     "top1": top_k_accuracy(logits, labels, 1),
+                                     "top5": top_k_accuracy(logits, labels, 5)})
 
     return step

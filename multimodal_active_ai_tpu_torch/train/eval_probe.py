@@ -13,6 +13,11 @@ package flattens NHWC, so weights carried across are permuted per block
 
 Randomness comes from an explicit ``torch.Generator``; tests may hand in the
 fixations ``fix_yx`` ``(F·B, 2)`` ``(y, x)``, view-major, instead.
+
+With several ranks (``parallel/``) the fixations are drawn for the global
+batch and each rank keeps its rows, the probe's gradient is averaged over
+the ranks before its update, and the returned metrics are the global
+batch's. The encoder is frozen, in eval mode: no statistics cross ranks.
 """
 
 from __future__ import annotations
@@ -21,8 +26,10 @@ import torch
 import torch.nn.functional as F
 
 from multimodal_active_ai_tpu_torch.ops import retina
+from multimodal_active_ai_tpu_torch.parallel import average_gradients, local_rows, world_size
 from multimodal_active_ai_tpu_torch.train.optimizers import set_learning_rate
 from multimodal_active_ai_tpu_torch.train.simclr_train import TrainState
+from multimodal_active_ai_tpu_torch.utils.meters import mean_across_replicas
 from multimodal_active_ai_tpu_torch.utils.metrics import top_k_accuracy
 
 
@@ -40,7 +47,12 @@ def extract_features(encoder: torch.nn.Module, images: torch.Tensor,
     """
     batch, src = images.shape[0], images.shape[1]
     pyramid = retina.build_pyramid(images, retina_cfg)
-    params = retina.sample_labeled_params(generator, num_fixations * batch, src, fix_yx)
+    if fix_yx is None:
+        # the global batch's view-major draws, this rank's rows of each view
+        glob = torch.rand((num_fixations, batch * world_size(), 2), generator=generator,
+                          device=generator.device)
+        fix_yx = local_rows(glob, 1).reshape(num_fixations * batch, 2)
+    params = retina.sample_labeled_params(None, num_fixations * batch, src, fix_yx)
     glimpses = retina.apply_retina_views(pyramid, params, retina_cfg, photometric=False)
     encoder.eval()
     feats = encoder.features(glimpses)                          # (F·B, 4, 4, C)
@@ -64,10 +76,11 @@ def make_probe_train_step(retina_cfg: retina.RetinaConfig, num_fixations: int):
         loss = F.cross_entropy(probe(feats), labels)
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        average_gradients(probe.parameters())
         set_learning_rate(opt, state.schedule(state.step))
         opt.step()
         state.step += 1
-        return {"loss": loss.detach()}
+        return mean_across_replicas({"loss": loss.detach()})
 
     return step
 
@@ -86,8 +99,8 @@ def make_probe_eval_step(retina_cfg: retina.RetinaConfig, num_fixations: int):
         probe.eval()
         with torch.no_grad():
             logits = probe(feats)
-        return {"loss": F.cross_entropy(logits, labels),
-                "top1": top_k_accuracy(logits, labels, 1),
-                "top5": top_k_accuracy(logits, labels, 5)}
+        return mean_across_replicas({"loss": F.cross_entropy(logits, labels),
+                                     "top1": top_k_accuracy(logits, labels, 1),
+                                     "top5": top_k_accuracy(logits, labels, 5)})
 
     return step

@@ -25,6 +25,13 @@ them, so no fixation waits on the device; the random fixations are a device
 tensor. Tests hand in the JAX package's draws instead. A greedy fixation
 runs the policy; a random one skips it (the JAX step computes it and
 discards it).
+
+With several ranks (``parallel/``) ``num_fixs``, the coins and ε agree on
+every rank by seed, the random fixations are drawn for the global batch and
+each rank keeps its rows (and its own rows' reward, for its own replay
+ring); the DETR gradient is averaged before the clip, the DQN's before the
+±1 clamp, its ``sync_bn`` statistics are the global replay batch's, and
+the metrics returned are the global batch's.
 """
 
 from __future__ import annotations
@@ -35,10 +42,12 @@ import torch
 
 from multimodal_active_ai_tpu_torch.objectives.dqn_loss import dqn_bellman_loss
 from multimodal_active_ai_tpu_torch.ops import retina
+from multimodal_active_ai_tpu_torch.parallel import average_gradients, local_rows, world_size
 from multimodal_active_ai_tpu_torch.rl.policy import eps_threshold, select_action_from_policy
 from multimodal_active_ai_tpu_torch.train import detr_train
 from multimodal_active_ai_tpu_torch.train.optimizers import set_learning_rate
 from multimodal_active_ai_tpu_torch.train.simclr_train import TrainState
+from multimodal_active_ai_tpu_torch.utils.meters import mean_across_replicas
 from multimodal_active_ai_tpu_torch.utils.metrics import top_k_accuracy
 
 
@@ -53,20 +62,21 @@ class RolloutDraws(NamedTuple):
 
     num_fixs: int                 # in [2, max(F, 3) − 1]
     coins: tuple[float, ...]      # one ε coin per fixation, U[0, 1)
-    random_fix: torch.Tensor      # (F, B, 2) random fixations (x, y), U[0, 1)
+    random_fix: torch.Tensor      # (F, B, 2) this rank's random fixations (x, y), U[0, 1)
 
 
 def draw_rollout(generator: torch.Generator, host_generator: torch.Generator,
                  batch: int, num_fixations: int) -> RolloutDraws:
     """``num_fixs`` and the coins from the CPU ``host_generator``, the
-    random fixations from ``generator`` on its device. ``num_fixs`` follows
-    the reference's ``torch.randint(2, F)`` with its exclusive high
-    (``:688,694``), pinned to 2 for F ≤ 3."""
+    random fixations of the global batch from ``generator`` on its device,
+    this rank's ``batch`` rows kept. ``num_fixs`` follows the reference's
+    ``torch.randint(2, F)`` with its exclusive high (``:688,694``), pinned
+    to 2 for F ≤ 3."""
     num_fixs = int(torch.randint(2, max(num_fixations, 3), (), generator=host_generator))
     coins = tuple(torch.rand(num_fixations, generator=host_generator).tolist())
-    random_fix = torch.rand((num_fixations, batch, 2), generator=generator,
+    random_fix = torch.rand((num_fixations, batch * world_size(), 2), generator=generator,
                             device=generator.device)
-    return RolloutDraws(num_fixs, coins, random_fix)
+    return RolloutDraws(num_fixs, coins, local_rows(random_fix, 1))
 
 
 def make_rollout(retina_cfg: retina.RetinaConfig, num_fixations: int, num_of_actions: int,
@@ -122,8 +132,8 @@ def make_rls_train_step(criterion, retina_cfg: retina.RetinaConfig, num_fixation
         # the reward is the query-mean top-1 correctness of this forward,
         # before the update (RLS :751-769)
         reward = (pred.detach().mean(dim=1).argmax(dim=1) == labels).to(torch.float32)
-        return ({"loss_ce": loss.detach(), "reward_mean": reward.mean(), "grad_norm": norm},
-                ro, reward)
+        metrics = {"loss_ce": loss.detach(), "reward_mean": reward.mean(), "grad_norm": norm}
+        return mean_across_replicas(metrics), ro, reward
 
     return step
 
@@ -149,9 +159,9 @@ def make_policy_eval_step(criterion, retina_cfg: retina.RetinaConfig, num_fixati
         with torch.no_grad():
             pred = model(ro.glimpses, ro.saccades, ro.mask)["pred_logits"]
         logits = pred.mean(dim=1)
-        return {"loss_ce": criterion(pred, labels)["loss_ce"],
-                "top1": top_k_accuracy(logits, labels, 1),
-                "top5": top_k_accuracy(logits, labels, 5)}
+        return mean_across_replicas({"loss_ce": criterion(pred, labels)["loss_ce"],
+                                     "top1": top_k_accuracy(logits, labels, 1),
+                                     "top5": top_k_accuracy(logits, labels, 5)})
 
     return step
 
@@ -159,8 +169,9 @@ def make_policy_eval_step(criterion, retina_cfg: retina.RetinaConfig, num_fixati
 def make_dqn_update_step(num_of_actions: int, gamma: float):
     """``optimize_foveator`` equivalent (``DQN/Training.py:86-140``).
     Returns ``step(policy_state, target, transition) -> loss`` (a device
-    scalar): the policy in train mode, the target in eval mode without
-    gradient, every gradient clamped to ±1 elementwise (the reference's
+    scalar, the global replay batch's): the policy in train mode, the
+    target in eval mode without gradient, every gradient averaged over
+    ranks and clamped to ±1 elementwise (the reference's
     ``param.grad.data.clamp_(-1, 1)``), then one update of the policy's
     optimizer at ``policy_state.schedule(step)``; ``policy_state.step``
     advances by one."""
@@ -176,13 +187,14 @@ def make_dqn_update_step(num_of_actions: int, gamma: float):
         loss = dqn_bellman_loss(qx, qy, tqx, tqy, actions, rewards, gamma, num_of_actions)
         opt.zero_grad(set_to_none=True)
         loss.backward()
+        average_gradients(policy.parameters())
         grads = [p.grad for p in policy.parameters() if p.grad is not None]
         torch._foreach_clamp_min_(grads, -1.0)
         torch._foreach_clamp_max_(grads, 1.0)
         set_learning_rate(opt, policy_state.schedule(policy_state.step))
         opt.step()
         policy_state.step += 1
-        return loss.detach()
+        return mean_across_replicas({"loss": loss.detach()})["loss"]
 
     return step
 

@@ -14,10 +14,20 @@ uint8 ``(B, S, S, 3)`` batch:
 
 It returns the per-fixation loss vector as a device tensor: nothing inside a
 step waits for the device. The JAX step is one compiled program; this one
-runs eagerly. BatchNorm statistics are the local batch's (single process).
+runs eagerly.
+
+With a process group of N ranks (``parallel/``) each rank holds ``b`` rows
+of a global batch of ``N·b`` and the step computes the JAX step of that
+global batch: every rank draws the global batch's augmentation parameters
+and noise from the same generator and keeps its own rows; the model's
+``sync_bn`` layers take the global statistics (view 0's too); NT-Xent takes
+its negatives from every rank; each gradient is averaged over the ranks
+before each of the F updates; the losses and the eval metrics returned are
+the global batch's.
 
 Randomness comes from an explicit ``torch.Generator``. Tests may pass each
-view's ``AugParams`` and noise tensor instead, in view order.
+view's ``AugParams`` and noise tensor (this rank's rows) instead, in view
+order.
 """
 
 from __future__ import annotations
@@ -29,7 +39,9 @@ import torch
 
 from multimodal_active_ai_tpu_torch.objectives.ntxent import contrastive_loss
 from multimodal_active_ai_tpu_torch.ops import retina
+from multimodal_active_ai_tpu_torch.parallel import average_gradients, local_rows, world_size
 from multimodal_active_ai_tpu_torch.train.optimizers import set_learning_rate
+from multimodal_active_ai_tpu_torch.utils.meters import mean_across_replicas
 from multimodal_active_ai_tpu_torch.utils.metrics import top_k_accuracy
 
 
@@ -48,16 +60,23 @@ def _view_fn(images: torch.Tensor, cfg: retina.RetinaConfig,
              generator: torch.Generator | None,
              params: Sequence[retina.AugParams] | None,
              noise: Sequence[torch.Tensor] | None):
-    """``view(j)`` → glimpses of view ``j`` over a pyramid built once."""
-    batch, src = images.shape[0], images.shape[1]
+    """``view(j)`` → glimpses of view ``j`` over a pyramid built once. The
+    draws are the global batch's, in the single-process order (parameters,
+    then noise); this rank keeps its rows."""
+    src = images.shape[1]
+    glob = images.shape[0] * world_size()
     pyramid = retina.build_pyramid(images, cfg)
+    shape = (glob, cfg.glimpse_size, cfg.glimpse_size, cfg.num_channels)
 
     def view(j: int) -> torch.Tensor:
-        p = (params[j] if params is not None
-             else retina.sample_unlabeled_params(generator, batch, src, cfg))
+        if params is not None:
+            p, nz = params[j], None if noise is None else noise[j]
+        else:
+            p = retina.AugParams(*map(local_rows, retina.sample_unlabeled_params(
+                generator, glob, src, cfg)))
+            nz = local_rows(torch.randn(shape, generator=generator, device=generator.device))
         return retina.apply_retina(None, p, cfg, photometric=True,
-                                   pyramid=pyramid, generator=generator,
-                                   noise=None if noise is None else noise[j])
+                                   pyramid=pyramid, generator=generator, noise=nz)
 
     return view
 
@@ -84,12 +103,13 @@ def make_train_step(retina_cfg: retina.RetinaConfig, num_fixations: int,
             loss, _, _ = contrastive_loss(h1, h2, temperature=temperature)
             opt.zero_grad(set_to_none=True)
             loss.backward()
+            average_gradients(model.parameters())
             set_learning_rate(opt, state.schedule(state.step))
             opt.step()
             state.step += 1
             losses.append(loss.detach())
             h1 = h2.detach()
-        return torch.stack(losses)
+        return mean_across_replicas({"losses": torch.stack(losses)})["losses"]
 
     return step
 
@@ -110,7 +130,7 @@ def make_eval_step(retina_cfg: retina.RetinaConfig, temperature: float):
             h1 = model(view(0))
             h2 = model(view(1))
             loss, logits_ab, labels = contrastive_loss(h1, h2, temperature=temperature)
-        return {"loss": loss, "top1": top_k_accuracy(logits_ab, labels, 1),
-                "top5": top_k_accuracy(logits_ab, labels, 5)}
+        return mean_across_replicas({"loss": loss, "top1": top_k_accuracy(logits_ab, labels, 1),
+                                     "top5": top_k_accuracy(logits_ab, labels, 5)})
 
     return step

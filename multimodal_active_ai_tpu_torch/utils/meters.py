@@ -3,10 +3,33 @@
 Port of ``multimodal_active_ai_tpu/utils/meters.py``: the ``AverageMeter``
 arithmetic of the reference ``SimCLR/Utilities.py:8-24`` and the same
 ``Speed`` and ``##Perf`` line formats (``Contrastive_Learning.py:532-539,
-726-734``).
+726-734``), and :func:`mean_across_replicas`, through which every step's
+metrics are averaged over ranks before a line is printed. With several
+ranks a line's batch is the global one (``Speed`` counts every rank's rows).
 """
 
 from __future__ import annotations
+
+import torch
+
+from multimodal_active_ai_tpu_torch.parallel import all_reduce_mean, world_size
+
+
+def mean_across_replicas(metrics: dict) -> dict:
+    """Each device tensor of ``metrics`` averaged over ranks, in one
+    all-reduce (reference ``Utilities.reduce_tensor``, the JAX package's
+    ``mean_across_replicas``). Every rank's value is the mean over its own,
+    equally many rows, so the result is the global batch's. At world 1 the
+    dict comes back as it is."""
+    if world_size() == 1:
+        return metrics
+    flat = torch.cat([v.detach().to(torch.float32).reshape(-1) for v in metrics.values()])
+    flat = all_reduce_mean(flat)
+    out, at = {}, 0
+    for k, v in metrics.items():
+        out[k] = flat[at:at + v.numel()].reshape(v.shape)
+        at += v.numel()
+    return out
 
 
 class AverageMeter:

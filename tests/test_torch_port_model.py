@@ -117,8 +117,11 @@ def test_batchnorm_differs_from_torch_running_var_on_purpose():
     torch.testing.assert_close(bn.running_mean, 0.1 * x.mean(dim=(0, 2, 3)))
     ref = torch.nn.functional.batch_norm(x, None, None, training=True, eps=1e-5)
     torch.testing.assert_close(y, ref, rtol=1e-4, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnorm.make_norm("sync_bn")
+    # sync_bn (the global batch's statistics) is bn on one process, bit for bit
+    sync = tnorm.make_norm("sync_bn")(5).train()
+    assert torch.equal(sync(x), y)
+    assert torch.equal(sync.running_var, bn.running_var)
+    assert torch.equal(sync.running_mean, bn.running_mean)
 
 
 def test_bf16_forward_keeps_f32_parameters_and_output(resnet10):

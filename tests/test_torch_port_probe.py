@@ -328,8 +328,13 @@ def test_driver_evaluate_only(simclr_checkpoint, tmp_path, capsys):
     assert "##Top-1" in capsys.readouterr().out and 0 <= prec1 <= prec5 <= 100
 
 
-@pytest.mark.parametrize("flag", [["--multislice"]])
-def test_driver_refuses_unported_flags(flag):
+@pytest.mark.parametrize("flag", [["--resume", "jax.msgpack"]])
+def test_driver_refuses_unported_flags(flag, tmp_path):
+    """``--multislice`` is ported (``test_torch_port_distributed_drivers.py``);
+    a resume from a JAX checkpoint is not (ROADMAP A5): any file that is not
+    a torch zip is read as one."""
+    flag = [str(tmp_path / f) if f.endswith(".msgpack") else f for f in flag]
+    (tmp_path / "jax.msgpack").write_bytes(b"\x82\xa5epoch\x01")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         driver.main(["x"] + PROBE_ARGS + flag)
 

@@ -230,8 +230,13 @@ def test_dqn_forward_matches_jax(dqn_vars, train):
         for k, v in dqn.state_dict().items():
             if k.endswith(("running_mean", "running_var")):
                 assert normwise(v, want[k]) <= 1e-4, k
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_dqn("ResNet10", A, norm_kind="sync_bn")
+    # the JAX DQN's default sync_bn (global statistics) is bn on one process
+    with torch.device("meta"):
+        sync = build_dqn("ResNet10", A, norm_kind="sync_bn")
+    sync.load_state_dict(tckpt.from_jax_dqn_variables(params, stats), assign=True)
+    ref = port_dqn(params, stats).train(train)
+    assert all(torch.equal(a, b) for a, b in zip(ref(t(x)), sync.train(train)(t(x))))
+    assert all(torch.equal(v, sync.state_dict()[k]) for k, v in ref.state_dict().items())
 
 
 def test_huber_and_bellman_loss_match_jax():
@@ -648,8 +653,13 @@ def test_driver_chain_trains_checkpoints_and_resumes_on_cpu(simclr_checkpoint, t
     assert again["epoch"] == 2 and again["step"] == 2 * expected
 
 
-@pytest.mark.parametrize("flag", [["--multislice"]])
-def test_driver_refuses_unported_flags(flag):
+@pytest.mark.parametrize("flag", [["--dqn-resume", "jax.msgpack"]])
+def test_driver_refuses_unported_flags(flag, tmp_path):
+    """``--multislice`` is ported (``test_torch_port_distributed_drivers.py``);
+    a resume from a JAX checkpoint is not (ROADMAP A5): any file that is not
+    a torch zip is read as one."""
+    flag = [str(tmp_path / f) if f.endswith(".msgpack") else f for f in flag]
+    (tmp_path / "jax.msgpack").write_bytes(b"\x82\xa5epoch\x01")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         driver.main(["x"] + RLS_ARGS + flag)
 

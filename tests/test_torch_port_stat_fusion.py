@@ -188,7 +188,7 @@ def test_stats_product_and_gradients_match_jax(mkn, impl):
     np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jgw).T, rtol=1e-4, atol=1e-4)
     if impl == "pallas":
-        py, ps, psq = tcs.conv1x1_stats_plain(_t(x), _t(w.T))
+        py, ps, psq = tcs.conv1x1_stats_plain(_t(x), tw.detach())
         assert torch.equal(py, y.detach()) and torch.equal(ps, s.detach())
 
 

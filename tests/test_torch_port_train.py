@@ -233,8 +233,13 @@ def test_driver_trains_checkpoints_and_resumes_on_cpu(tmp_path, capsys):
     assert resumed.step == 4 * F
 
 
-@pytest.mark.parametrize("flag", [["--multislice"], ["--unroll-fixations", "2"]])
-def test_driver_refuses_unported_flags(flag):
+@pytest.mark.parametrize("flag", [["--resume", "jax.msgpack"], ["--unroll-fixations", "2"]])
+def test_driver_refuses_unported_flags(flag, tmp_path):
+    """``--multislice`` is ported (``test_torch_port_distributed_drivers.py``);
+    a resume from a JAX checkpoint is not (ROADMAP A5): any file that is not
+    a torch zip is read as one."""
+    flag = [str(tmp_path / f) if f.endswith(".msgpack") else f for f in flag]
+    (tmp_path / "jax.msgpack").write_bytes(b"\x82\xa5epoch\x01")
     with pytest.raises(NotImplementedError, match="ROADMAP|unroll"):
         driver.main(DRIVER_ARGS + ["--device", "cpu"] + flag)
 

@@ -97,6 +97,22 @@ result line):
    launches it, rank 0 alone writing. (e) The step time a rank, the global
    img/s and the peak memory beside the card's name and power limit,
    labelled when the ranks share a card.
+3i. A JAX-package checkpoint on the card. The machine has no JAX, so the
+   script writes the JAX SimCLR driver's msgpack of the phase-3 state itself
+   (``flax_msgpack_bytes``: flax's bytes; ``to_jax_simclr``: the inverse of
+   the port's weight map, for the weights and Adam's moments; optax's
+   ``adam`` chain with its counts), then resumes the SimCLR driver from it
+   and from the port's own ``.pth.tar`` (epoch 1 of 2, cuDNN
+   deterministic): the first resumed step's losses and the weights and
+   BatchNorm statistics after it bit-identical (``num_batches_tracked``,
+   which the JAX layout lacks and the port never reads, apart); B1 35
+   launches each, B2-B4 none.
+3j. The retina's ``canvas`` mode on the card against
+   ``tests/data/dali_golden.npz`` (mean |d| < 1.5, p99 < 7) and against the
+   CPU (<= 1e-3 on the 0..255 scale); the ``fused`` mode against the CPU at
+   b=128, canvas 640 (|d| <= 1e-2 + 1e-4|cpu| but for at most 1e-4 of
+   the elements); the ms of one view of each; 3 SimCLR train steps with
+   each mode at the phase-3 width: median step, peak memory, B1 never.
 4. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX. It exits non-zero without CUDA, and when the
@@ -2039,6 +2055,406 @@ def run_multi_rank_path(torch, simclr_ck: str, workdir: str, device_name: str) -
     return {"step_ms": step_ms, "peak_gib": peak, "how": how}
 
 
+# ---------------------------------------------------------------------------
+# phase 3i: a JAX-layout SimCLR checkpoint, written here (the card's machine
+# has no JAX) from the phase-3 checkpoint: the JAX package's flax msgpack of
+# its driver's payload, the inverse of the port's ``from_jax_variables`` for
+# the weights and Adam's moments, optax's ``adam`` chain state
+# ``{'0': {count, mu, nu}, '1': {count}}``.
+
+
+def _msgpack(obj, out: list) -> None:
+    """Append ``obj`` encoded as ``flax.serialization.msgpack_serialize``
+    does (msgpack with ``use_bin_type``, the smallest encodings; maps in
+    sorted key order, as ``jax.tree_util`` rebuilds them; numpy arrays as
+    flax's ext 1, numpy scalars as ext 3)."""
+    import struct
+
+    import numpy as np
+
+    def head(n, fix, fix_max, codes):
+        if n <= fix_max:
+            out.append(bytes([fix | n]))
+            return
+        for code, fmt, top in codes:
+            if n <= top:
+                out.append(bytes([code]) + struct.pack(fmt, n))
+                return
+        raise ValueError(f"msgpack length {n} too large")
+
+    if isinstance(obj, dict):
+        head(len(obj), 0x80, 15, ((0xde, ">H", 0xffff), (0xdf, ">I", 0xffffffff)))
+        for k in sorted(obj):
+            _msgpack(k, out)
+            _msgpack(obj[k], out)
+    elif isinstance(obj, (np.ndarray, np.generic)):
+        arr = np.asarray(obj)
+        inner: list = []
+        _msgpack([list(arr.shape), arr.dtype.name, arr.tobytes("C")], inner)
+        payload = b"".join(inner)
+        code = 1 if isinstance(obj, np.ndarray) else 3
+        fixext = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}.get(len(payload))
+        if fixext:
+            out.append(bytes([fixext, code]))
+        else:
+            for lead, fmt, top in ((0xc7, ">B", 0xff), (0xc8, ">H", 0xffff),
+                                   (0xc9, ">I", 0xffffffff)):
+                if len(payload) <= top:
+                    out.append(bytes([lead]) + struct.pack(fmt, len(payload)) + bytes([code]))
+                    break
+        out.append(payload)
+    elif obj is None or isinstance(obj, bool):
+        out.append({None: b"\xc0", False: b"\xc2", True: b"\xc3"}[obj])
+    elif isinstance(obj, int):
+        if 0 <= obj <= 0x7f or -32 <= obj < 0:
+            out.append(struct.pack(">b" if obj < 0 else ">B", obj))
+        elif obj > 0:
+            for code, fmt, top in ((0xcc, ">B", 0xff), (0xcd, ">H", 0xffff),
+                                   (0xce, ">I", 0xffffffff), (0xcf, ">Q", 2**64 - 1)):
+                if obj <= top:
+                    out.append(bytes([code]) + struct.pack(fmt, obj))
+                    break
+        else:
+            for code, fmt, low in ((0xd0, ">b", -2**7), (0xd1, ">h", -2**15),
+                                   (0xd2, ">i", -2**31), (0xd3, ">q", -2**63)):
+                if obj >= low:
+                    out.append(bytes([code]) + struct.pack(fmt, obj))
+                    break
+    elif isinstance(obj, float):
+        out.append(b"\xcb" + struct.pack(">d", obj))
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        head(len(data), 0xa0, 31, ((0xd9, ">B", 0xff), (0xda, ">H", 0xffff),
+                                   (0xdb, ">I", 0xffffffff)))
+        out.append(data)
+    elif isinstance(obj, bytes):
+        head(len(obj), 0, -1, ((0xc4, ">B", 0xff), (0xc5, ">H", 0xffff),
+                               (0xc6, ">I", 0xffffffff)))
+        out.append(obj)
+    elif isinstance(obj, (list, tuple)):
+        head(len(obj), 0x90, 15, ((0xdc, ">H", 0xffff), (0xdd, ">I", 0xffffffff)))
+        for v in obj:
+            _msgpack(v, out)
+    else:
+        raise TypeError(f"cannot encode {type(obj).__name__}")
+
+
+def flax_msgpack_bytes(tree) -> bytes:
+    """``tree`` (dicts with str keys; numpy arrays and scalars, Python
+    numbers, str, bytes, lists) as the bytes of the JAX package's
+    checkpoint files. No array here reaches flax's 1 GiB chunk size."""
+    out: list = []
+    _msgpack(tree, out)
+    return b"".join(out)
+
+
+def _jax_slots(n_main: int, part: str) -> str:
+    """The flax slot of a port block part (``conv2`` → ``Conv_1``, ``bn2``
+    → ``BatchNorm_1``, ``downsample.0``/``.1`` → the slot after the main
+    convs)."""
+    if part.startswith("downsample."):
+        kind = "Conv" if part.endswith("0") else "BatchNorm"
+        return f"{kind}_{n_main}"
+    kind = "Conv" if part.startswith("conv") else "BatchNorm"
+    return f"{kind}_{int(part[-1]) - 1}"
+
+
+def to_jax_simclr(sd: dict, with_stats: bool = True):
+    """A port SimCLR ``state_dict`` (the reference torch layout) → the JAX
+    ``SimCLRModule``'s ``(params, batch_stats)`` in the unfused layout: the
+    inverse of ``utils/checkpoint.from_jax_variables``, a pure reordering
+    (convs OIHW → HWIO, Dense kernels transposed, ``g``'s ``Dense_0`` rows
+    from the C-major flatten back to NHWC). ``with_stats=False`` maps a
+    tree of the parameters alone (Adam's moments) and returns no
+    statistics."""
+    import numpy as np
+
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree, path, value):
+        for key in path[:-1]:
+            tree = tree.setdefault(key, {})
+        tree[path[-1]] = np.ascontiguousarray(value, dtype=np.float32)
+
+    n_main = {}
+    for key in sd:
+        if key.startswith("f.layer") and ".conv" in key:
+            block = ".".join(key.split(".")[1:3])
+            n_main[block] = max(n_main.get(block, 0), int(key.split(".")[3][-1]))
+    for key, value in sd.items():
+        v = value.detach().cpu().numpy() if hasattr(value, "detach") else np.asarray(value)
+        parts = key.split(".")
+        if parts[-1] == "num_batches_tracked":
+            continue
+        if parts[0] == "g":
+            dense = f"Dense_{int(parts[2]) // 2}"
+            if parts[-1] == "bias":
+                put(params, ("g", dense, "bias"), v)
+            elif dense == "Dense_0":
+                out_dim, cin = v.shape
+                c = cin // 16
+                put(params, ("g", dense, "kernel"), np.transpose(
+                    v.reshape(out_dim, c, 4, 4), (2, 3, 1, 0)).reshape(16 * c, out_dim))
+            else:
+                put(params, ("g", dense, "kernel"), v.T)
+            continue
+        if parts[1] in ("conv1", "bn1"):
+            mod, leaf = ("f", parts[1]), parts[2]
+        else:
+            block = f"layer{parts[1][5:]}_{parts[2]}"
+            part = ".".join(parts[3:-1])
+            mod = ("f", block, _jax_slots(n_main[parts[1] + "." + parts[2]], part))
+            leaf = parts[-1]
+        if leaf == "weight" and v.ndim == 4:
+            put(params, mod + ("kernel",), np.transpose(v, (2, 3, 1, 0)))
+        elif leaf in ("weight", "bias"):
+            put(params, mod + ({"weight": "scale", "bias": "bias"}[leaf],), v)
+        elif with_stats:
+            put(stats, mod + ({"running_mean": "mean", "running_var": "var"}[leaf],), v)
+    return (params, stats) if with_stats else params
+
+
+def jax_simclr_payload(torch, payload: dict, model) -> dict:
+    """The JAX SimCLR driver's checkpoint of the state a port ``payload``
+    holds (``model`` names the optimizer's parameter indices): weights and
+    statistics, optax ``adam``'s moments and counts, step, epoch, best
+    top-1, histories and time."""
+    import numpy as np
+
+    names = [n for n, _ in model.named_parameters()]
+    opt = payload["optimizer"]
+    order = opt["param_groups"][0]["params"]
+    moments = {k: to_jax_simclr({names[i]: opt["state"][i][k] for i in order}, False)
+               for k in ("exp_avg", "exp_avg_sq")}
+    counts = {int(opt["state"][i]["step"]) for i in order}
+    if len(counts) != 1:
+        fail(f"Adam counts differ across parameters: {sorted(counts)}")
+    params, stats = to_jax_simclr(payload["state_dict"])
+    i32 = lambda n: np.asarray(n, np.int32)   # noqa: E731  (optax's int32 counts)
+    return {"epoch": int(payload["epoch"]), "step": int(payload["step"]),
+            "state_dict": {"params": params, "batch_stats": stats},
+            "best_prec1": float(payload["best_prec1"]),
+            "optimizer": {"0": {"count": i32(counts.pop()), "mu": moments["exp_avg"],
+                                "nu": moments["exp_avg_sq"]},
+                          "1": {"count": i32(payload.get("count", payload["step"]))}},
+            **{k: np.asarray(payload[k], np.float64)
+               for k in ("loss_history", "top1_acc_history", "top5_acc_history")},
+            "total_time": {k: float(v) for k, v in payload["total_time"].items()}}
+
+
+def run_jax_resume_path(torch, counters, driver, ckpt_mod, simclr_ck, workdir, device_name):
+    """Phase 3i: the SimCLR driver resumed on the card from a JAX-layout
+    msgpack of the phase-3 state and from the port's own ``.pth.tar`` of
+    it (epoch 1 of 2: 3 train steps and validation, cuDNN deterministic):
+    the first resumed step's losses and the weights after it bit-identical,
+    B1 launched as the path launches it, B2-B4 never."""
+    from multimodal_active_ai_tpu_torch.models.simclr import SimCLRModule
+    from multimodal_active_ai_tpu_torch.train import simclr_train
+
+    payload = ckpt_mod.load_checkpoint(simclr_ck)
+    with torch.device("meta"):
+        model = SimCLRModule(arch=ARCH)
+    t0 = time.perf_counter()
+    jax_file = os.path.join(workdir, "jax_checkpoint.msgpack")
+    data = flax_msgpack_bytes(jax_simclr_payload(torch, payload, model))
+    with open(jax_file, "wb") as f:
+        f.write(data)
+    back = ckpt_mod.load_checkpoint(jax_file)
+    if ckpt_mod.is_torch_file(jax_file) or back["step"] != payload["step"]:
+        fail("the JAX-layout checkpoint does not read back")
+    print(f"JAX-layout checkpoint: {len(data) / 2**20:.1f} MiB written and read back in "
+          f"{time.perf_counter() - t0:.1f} s (step {back['step']}, Adam count "
+          f"{int(back['optimizer']['0']['count'])})")
+
+    make = simclr_train.make_train_step
+    expected = {"glimpse_sample": TRAIN_STEPS * (1 + FIXATIONS) + 2 * EVAL_STEPS,
+                "stat_sums": 0, "conv1x1_stats": 0, "hat_sample": 0}
+    firsts = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, resume in (("JAX msgpack", jax_file), ("port .pth.tar", simclr_ck)):
+            seen: dict = {}
+
+            def spy(*a, **k):
+                step = make(*a, **k)
+
+                def first(state, images, gen=None, **kw):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    losses = step(state, images, gen, **kw)
+                    if not seen:
+                        torch.cuda.synchronize()
+                        seen["ms"] = (time.perf_counter() - t0) * 1e3
+                        seen["losses"] = losses.clone()
+                        seen["sd"] = {n: t.detach().clone()
+                                      for n, t in state.model.state_dict().items()}
+                    return losses
+                return first
+
+            ckdir = os.path.join(workdir, f"resume_{len(firsts)}")
+            argv = ["--dataset", "synthetic", "--arch", ARCH, "-b", str(BATCH), "-f",
+                    str(FIXATIONS), "--canvas-size", str(CANVAS), "--epochs", "2", "-t",
+                    "--num-examples", str(EXAMPLES), "--checkpoint-dir", ckdir, "-p", "1",
+                    "--resume", resume]
+            simclr_train.make_train_step = spy
+            reset_counts(counters.values())
+            try:
+                t0 = time.perf_counter()
+                state = driver.main(argv)
+                torch.cuda.synchronize()
+            finally:
+                simclr_train.make_train_step = make
+            got = {k: c.launches for k, c in counters.items()}
+            print(f"resume from the {label}: step {state.step} (count {state.count}), first "
+                  f"step {seen['ms']:.1f} ms, its losses "
+                  f"{[round(x, 4) for x in seen['losses'].tolist()]}, launches {got}, driver "
+                  f"run {time.perf_counter() - t0:.1f} s [{device_name}]")
+            if got != expected:
+                fail(f"resume from the {label}: launches {got}, expected {expected}")
+            if state.step != payload["step"] + TRAIN_STEPS * FIXATIONS:
+                fail(f"resume from the {label}: step {state.step}")
+            firsts[label] = seen
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b = firsts.values()
+    same_losses = torch.equal(a["losses"], b["losses"])
+    # BatchNorm's num_batches_tracked counts forwards since the weights were
+    # loaded: the JAX layout has no such counter (a JAX file starts it at
+    # 0), and the port's BatchNorm never reads it
+    weights = [n for n in a["sd"] if not n.endswith("num_batches_tracked")]
+    differ = [n for n in weights if not torch.equal(a["sd"][n], b["sd"][n])]
+    print(f"first resumed step, JAX msgpack vs port .pth.tar: losses bit-identical "
+          f"{same_losses}; {len(weights) - len(differ)} of {len(weights)} weights and "
+          f"statistics bit-identical after it ({len(a['sd']) - len(weights)} "
+          f"num_batches_tracked counters apart) [{device_name}]")
+    if not same_losses or differ:
+        fail(f"the two resumes' first steps differ: {differ[:5]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3j: the retina's fused and canvas modes on the card
+
+
+def run_retina_modes_path(torch, counters, device_name) -> dict:
+    """Phase 3j: the ``canvas`` mode on the card against
+    ``tests/data/dali_golden.npz`` (``tests/test_dali_golden.py``'s bounds)
+    and against the CPU; the ``fused`` mode against the CPU at the main
+    path's width; then 3 SimCLR train steps with each mode at the main
+    path's width (ResNet-50, b=128, F=10, canvas 640, bf16): the median
+    step, the peak memory, B1 never launched. Returns the times."""
+    import numpy as np
+
+    from multimodal_active_ai_tpu_torch.models.simclr import SimCLRModule
+    from multimodal_active_ai_tpu_torch.ops import retina
+    from multimodal_active_ai_tpu_torch.train import optimizers, schedule, simclr_train
+
+    dev = torch.device("cuda")
+    data = np.load(os.path.join(ROOT, "tests", "data", "dali_golden.npz"))
+    cases = {"labeled": dict(fix_yx=(0.3, 0.7), angle=13.5),
+             "unlabeled_geo": dict(fix_yx=(0.6, 0.2), angle=-20.0, rrc_origin_yx=(50, 80),
+                                   rrc_size_hw=(500, 430), flip=True)}
+    canvas_cfg = retina.RetinaConfig(canvas_size=CANVAS, mode="canvas")
+    src = torch.from_numpy(data["source"][None])
+    for name, kw in cases.items():
+        p = retina.neutral_params(1, CANVAS)._replace(
+            fix_yx=torch.tensor([kw["fix_yx"]]), angle=torch.tensor([kw["angle"]]))
+        if "flip" in kw:
+            f32 = torch.float32
+            p = p._replace(rrc_origin_yx=torch.tensor([kw["rrc_origin_yx"]], dtype=f32),
+                           rrc_size_hw=torch.tensor([kw["rrc_size_hw"]], dtype=f32),
+                           flip=torch.tensor([kw["flip"]]))
+        cpu = retina.apply_retina(src, p, canvas_cfg, False)[0]
+        card = retina.apply_retina(src.to(dev), retina.AugParams(*(t.to(dev) for t in p)),
+                                   canvas_cfg, False)[0].cpu()
+        d = (card - torch.from_numpy(data[f"expected_{name}"])).abs().numpy()
+        vs_cpu = float((card - cpu).abs().max())
+        print(f"canvas mode on the card, golden '{name}': mean |d| {d.mean():.3f} (bound 1.5), "
+              f"p99 {np.percentile(d, 99):.2f} (bound 7); max |card - cpu| {vs_cpu:.2e} "
+              f"(bound 1e-3)")
+        if d.mean() >= 1.5 or np.percentile(d, 99) >= 7.0 or vs_cpu > 1e-3:
+            fail(f"canvas mode on the card misses the golden '{name}' or the CPU")
+
+    gen = torch.Generator().manual_seed(21)
+    images = torch.randint(0, 256, (BATCH, CANVAS, CANVAS, 3), generator=gen, dtype=torch.uint8)
+    fused_cfg = retina.RetinaConfig(canvas_size=CANVAS, mode="fused", grid_mask_prob=1.0,
+                                    gaussian_noise_prob=1.0, color_aug_prob=1.0)
+    p = retina.sample_unlabeled_params(gen, BATCH, CANVAS, fused_cfg)
+    noise = torch.randn(retina.noise_shape(fused_cfg, BATCH), generator=gen)
+    cpu = retina.apply_retina(images, p, fused_cfg, True, noise=noise)
+    card = retina.apply_retina(images.to(dev), retina.AugParams(*(t.to(dev) for t in p)),
+                               fused_cfg, True, noise=noise.to(dev)).cpu()
+    # The view tolerance of the CPU tests, |d| <= 1e-2 + 1e-4|cpu|: f32
+    # sin/cos and FMA contraction differ by ulps between the card and the
+    # CPU, and noise (std up to 100) and the colour twist carry values to
+    # ~850. A coordinate an ulp apart can also cross a step of the
+    # sampler: JAX's edge clamp (y in [-1, 0) reads pixels 0 and 1 with
+    # weight y + 1 on pixel 1), a grid-mask or canvas-edge boundary. So at
+    # most 1e-4 of the elements may fall outside it.
+    err = (card - cpu).abs()
+    outside = int((err > 1e-2 + 1e-4 * cpu.abs()).sum())
+    print(f"fused mode on the card vs the CPU (b={BATCH}, canvas {CANVAS}, photometric): "
+          f"max |d| {float(err.max()):.2e} of values to {float(cpu.abs().max()):.1f}; "
+          f"{outside} of {err.numel()} elements outside 1e-2 + 1e-4|cpu| (bound "
+          f"{int(1e-4 * err.numel())})")
+    if outside > 1e-4 * err.numel():
+        fail(f"fused mode on the card differs from the CPU in {outside} elements")
+
+    # the canvas retina alone: ms a view of b=128 at canvas 640 (photometric)
+    canvas_photo = retina.RetinaConfig(canvas_size=CANVAS, mode="canvas", grid_mask_prob=1.0,
+                                       gaussian_noise_prob=1.0, color_aug_prob=1.0)
+    dgen = torch.Generator(device=dev).manual_seed(22)
+    dimages = images.to(dev)
+    view_ms = {}
+    for label, cfg in (("fused", fused_cfg), ("canvas", canvas_photo)):
+        def view():
+            q = retina.sample_unlabeled_params(dgen, BATCH, CANVAS, cfg)
+            return retina.apply_retina(dimages, q, cfg, True, generator=dgen)
+        view()
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            view()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        view_ms[label] = sorted(times)[2]
+        print(f"{label} retina view (b={BATCH}, canvas {CANVAS}, photometric): median "
+              f"{view_ms[label]:.2f} ms over 5 {[round(t, 2) for t in times]} [{device_name}]")
+
+    out = {"view_ms": view_ms}
+    for mode in ("fused", "canvas"):
+        cfg = retina.RetinaConfig(canvas_size=CANVAS, mode=mode)
+        model = SimCLRModule(ARCH, dtype=torch.bfloat16,
+                             generator=torch.Generator().manual_seed(23))
+        model = model.to(dev).to(memory_format=torch.channels_last)
+        state = simclr_train.TrainState(
+            model, optimizers.get_optimizer("adam", model.parameters()),
+            schedule.simclr_learning_rate(0.01, BATCH, EXAMPLES, BATCH, 10, 190))
+        step = simclr_train.make_train_step(cfg, FIXATIONS, 0.05)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters.values())
+
+        def checked():
+            losses = step(state, dimages, dgen)
+            if not bool(torch.isfinite(losses).all()):
+                fail(f"{mode} step: non-finite losses {losses.tolist()}")
+
+        ms = median_step_ms(torch, checked, f"retina {mode}", device_name, FIXATIONS)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        got = {k: c.launches for k, c in counters.items()}
+        print(f"retina {mode} SimCLR steps: peak memory {peak:.2f} GiB, launches {got}")
+        if any(got.values()):
+            fail(f"retina {mode} launched kernels of the matmul path: {got}")
+        out[mode] = (ms, peak)
+        del model, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PACKAGE)):
         fail(f"{PACKAGE}/ is not beside chip_smoke.py; run it from the repository root")
@@ -2108,6 +2524,14 @@ def main() -> int:
         dist = run_multi_rank_path(torch, simclr_ck, workdir, device_name)
         print(f"phase 3h (2-rank SimCLR, 1-rank NCCL, 2 vs 1 on the card, four drivers at 2 "
               f"ranks): {time.perf_counter() - t3h:.1f} s")
+        t3i = time.perf_counter()
+        run_jax_resume_path(torch, counters, driver, ckpt_mod, simclr_ck, workdir, device_name)
+        print(f"phase 3i (JAX-layout checkpoint written, two resumes): "
+              f"{time.perf_counter() - t3i:.1f} s")
+        t3j = time.perf_counter()
+        modes = run_retina_modes_path(torch, counters, device_name)
+        print(f"phase 3j (canvas and fused retina on the card, their SimCLR steps): "
+              f"{time.perf_counter() - t3j:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     rows["conv1x1_stats"]["launches"] = fused["conv1x1_stats"]
@@ -2146,6 +2570,12 @@ def main() -> int:
           f"{2 * BATCH / dist['step_ms'] * 1e3:.1f} img/s global, peak memory "
           f"{dist['peak_gib']:.2f} GiB a rank; 1-rank step (phase 3) {bn_ms:.1f} ms "
           f"[{device_name}]")
+
+    print(f"retina modes ({ARCH}, b={BATCH}, F={FIXATIONS}, canvas {CANVAS}, bf16): SimCLR "
+          f"step fused {modes['fused'][0]:.1f} ms ({modes['fused'][1]:.2f} GiB), canvas "
+          f"{modes['canvas'][0]:.1f} ms ({modes['canvas'][1]:.2f} GiB), matmul (phase 3) "
+          f"{bn_ms:.1f} ms; a view: fused {modes['view_ms']['fused']:.2f} ms, canvas "
+          f"{modes['view_ms']['canvas']:.2f} ms [{device_name}]")
 
     # phase 4: results
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -11,7 +11,7 @@ epoch / ``-t`` / validate / checkpoint flow and the same ``Speed`` and
 It runs on ``--device cuda`` (the default; it raises if CUDA is absent) or
 ``--device cpu``. Checkpoints are ``checkpoint.pth.tar`` /
 ``model_best.pth.tar`` in ``--checkpoint-dir``; ``--resume`` takes one of
-them.
+them, or a JAX package checkpoint (below).
 
 On N GPUs it is one process per card::
 
@@ -29,9 +29,16 @@ rank reads ``--resume``. ``--multislice`` prints the nodes × ranks layout.
 ``--stat-fusion pallas|gram`` takes the Bottleneck 1×1 convs' BatchNorm
 statistics from the convs themselves (``models/conv_bn.py``; ``pallas`` is
 the ``conv1x1_stats`` kernel on CUDA). The port's checkpoints have one
-layout with or without it, so a checkpoint resumes under any
-``--stat-fusion`` value, optimizer state included: no conversion, unlike
-the JAX driver's cross-layout resume (``contrastive_learning.py:189-201``).
+layout with or without it, so a checkpoint of the port resumes under any
+``--stat-fusion`` value, optimizer state included.
+
+``--resume`` also takes the JAX package's ``checkpoint.msgpack``: weights,
+optax state (Adam/LARS moments, SGD momentum, the counts), step, epoch,
+best top-1, histories and time, by the JAX driver's rules
+(``contrastive_learning.py:184-220``): a file whose Bottleneck layout is
+not the one the JAX driver would build from ``--arch``/``--stat-fusion``
+converts its weights and starts the optimizer fresh, its schedule at 0.
+The port's own checkpoint also keeps that schedule position (``count``).
 
 ``--dataset imagenet DATA`` reads an ImageNet folder (``DATA/ImageNet/ILSVRC/
 Data/CLS-LOC/{train,val}``, else ``DATA/{train,val}``, else ``DATA`` itself)
@@ -54,6 +61,7 @@ import os
 from contextlib import closing
 from time import time
 
+import numpy as np
 import torch
 
 from multimodal_active_ai_tpu_torch import parallel
@@ -64,6 +72,7 @@ from multimodal_active_ai_tpu_torch.data.readers import list_coco_images, list_i
 from multimodal_active_ai_tpu_torch.data.synthetic import SyntheticReader
 from multimodal_active_ai_tpu_torch.device import synchronize
 from multimodal_active_ai_tpu_torch.models.norm import refuse_multi_device
+from multimodal_active_ai_tpu_torch.models.resnet import Bottleneck
 from multimodal_active_ai_tpu_torch.models.simclr import SimCLRModule
 from multimodal_active_ai_tpu_torch.ops import retina
 from multimodal_active_ai_tpu_torch.parallel import print0
@@ -131,6 +140,24 @@ def print_loader_stats(cfg, reader) -> None:
     """Under ``-v``, a file reader's line for the epoch just read (rank 0's)."""
     if cfg.verbose and isinstance(reader, HostLoader):
         print0(reader.stats_line())
+
+
+def resume_jax(cfg, payload: dict, model: SimCLRModule, opt) -> int:
+    """Load a JAX SimCLR checkpoint's weights, and its optax state where the
+    JAX driver would carry it: when the file's Bottleneck layout is the one
+    the JAX driver builds from ``--arch``/``--stat-fusion`` (fused iff
+    ``--stat-fusion`` is set and the arch has Bottlenecks). Otherwise the
+    optimizer starts fresh and its schedule restarts at 0 (the JAX driver's
+    fresh optax count) while ``step`` carries on. Returns the schedule
+    count."""
+    want_fused = bool(cfg.stat_fusion) and any(isinstance(m, Bottleneck)
+                                               for m in model.modules())
+    count = ckpt.resume_jax_simclr(payload, model, opt, cfg.optimizer, want_fused, cfg.resume)
+    if count is None:
+        print0("=> checkpoint layout differs from --stat-fusion; "
+               "converting weights (optimizer state starts fresh)")
+        return 0
+    return count
 
 
 def main(argv=None):
@@ -203,15 +230,19 @@ def train(cfg, device: torch.device):
     if cfg.resume:
         if os.path.isfile(cfg.resume):
             print0(f"=> loading checkpoint '{cfg.resume}'")
-            payload = ckpt.load_resume(cfg.resume, map_location=device)
-            model.load_state_dict(payload["state_dict"])
-            opt.load_state_dict(payload["optimizer"])
+            payload = ckpt.load_checkpoint(cfg.resume, map_location=device)
+            if ckpt.is_torch_file(cfg.resume):
+                model.load_state_dict(payload["state_dict"])
+                opt.load_state_dict(payload["optimizer"])
+                state.count = int(payload.get("count", payload["step"]))
+            else:
+                state.count = resume_jax(cfg, payload, model, opt)
             state.step = int(payload["step"])
             start_epoch = int(payload["epoch"])
             best_prec1 = float(payload["best_prec1"])
-            loss_history = list(payload["loss_history"])
-            top1_acc_history = list(payload["top1_acc_history"])
-            top5_acc_history = list(payload["top5_acc_history"])
+            loss_history, top1_acc_history, top5_acc_history = (
+                [float(x) for x in np.atleast_1d(payload[k])]
+                for k in ("loss_history", "top1_acc_history", "top5_acc_history"))
             total_time.load_state_dict(payload["total_time"])
             print0(f"=> loaded checkpoint '{cfg.resume}' (epoch {start_epoch})")
             print0(f"Model best precision saved was {best_prec1}")
@@ -282,6 +313,7 @@ def train(cfg, device: torch.device):
             ckpt.save_checkpoint({
                 "epoch": epoch + 1,
                 "step": state.step,
+                "count": state.count,
                 "state_dict": model.state_dict(),
                 "best_prec1": best_prec1,
                 "optimizer": opt.state_dict(),

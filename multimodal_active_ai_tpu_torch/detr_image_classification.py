@@ -23,8 +23,9 @@ and ``detr_classifier_model_best.pth.tar`` in ``--checkpoint-dir``, in the
 reference's four-key schema; ``--resume`` takes one of them (or an
 ``--export-torch`` file, whose optimizer state is empty), ``-e`` only
 validates, and ``--export-torch`` writes the model's ``state_dict``, which
-is the reference ``detr_CLA`` layout. ``--resume`` of a JAX checkpoint
-raises (its optax state is not carried yet).
+is the reference ``detr_CLA`` layout. ``--resume`` also takes the JAX
+package's ``detr_classifier_checkpoint.msgpack`` (FrozenBatchNorm
+backbone): params, statistics and the optax state of its AdamW groups.
 
 ``--dataset imagenet|mscoco DATA`` and ``--canvas-cache`` read image files as
 the SimCLR driver does (:func:`~multimodal_active_ai_tpu_torch.
@@ -97,15 +98,24 @@ def resume(cfg, state: TrainState, steps_per_epoch: int,
     """Restore ``--resume``'s model and optimizer state into ``state``
     (the update count from the optimizer's state, else ``epoch ·
     steps_per_epoch``); returns ``(start_epoch, best_prec1)``, the config's
-    ``start_epoch`` and 0 when there is nothing to resume."""
+    ``start_epoch`` and 0 when there is nothing to resume. A JAX package
+    checkpoint brings its params, FrozenBatchNorm statistics and optax
+    state (each AdamW group's moments and count), the StepLR position
+    following that count."""
     if cfg.resume and os.path.isfile(cfg.resume):
-        payload = ckpt.load_resume(cfg.resume, map_location=device)
-        state.model.load_state_dict(payload["state_dict"])
+        payload = ckpt.load_checkpoint(cfg.resume, map_location=device)
+        if ckpt.is_torch_file(cfg.resume):
+            state.model.load_state_dict(payload["state_dict"])
+            if payload["optimizer"] is not None:
+                state.optimizer.load_state_dict(payload["optimizer"])
+            taken = optimizers.updates_taken(state.optimizer)
+        else:
+            taken = ckpt.resume_jax_detr(payload, state.model, state.optimizer,
+                                         bool(cfg.clip_max_norm and cfg.clip_max_norm > 0),
+                                         cfg.resume)
         start_epoch = int(payload["epoch"])
-        if payload["optimizer"] is not None:
-            state.optimizer.load_state_dict(payload["optimizer"])
-        taken = optimizers.updates_taken(state.optimizer)
         state.step = start_epoch * steps_per_epoch if taken is None else taken
+        state.count = state.step
         print0(f"=> resumed from '{cfg.resume}' (epoch {start_epoch}, step {state.step})")
         return start_epoch, float(payload["best_prec1"])
     if cfg.resume:

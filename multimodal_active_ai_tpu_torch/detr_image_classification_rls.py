@@ -23,11 +23,14 @@ absent) or ``--device cpu``. The replay memory lives on that device.
 
 Checkpoints, in ``--checkpoint-dir``: ``detr_classifier_checkpoint.pth.tar``
 and ``detr_classifier_model_best.pth.tar`` (the DETR driver's four keys;
-``--resume`` takes one), and ``dqn_checkpoint.pth.tar`` with ``epoch``,
-``step``, ``policy_state_dict`` and ``target_state_dict`` (BatchNorm
-buffers included; ``--dqn-resume`` takes it). As in the JAX driver the DQN
-file holds no RMSprop state, so ``--dqn-resume`` restarts its second moment
-at 0, and the replay memory and the update coins start afresh. Like the
+``--resume`` takes one, or the JAX driver's DETR msgpack, as the DETR
+driver does), and ``dqn_checkpoint.pth.tar`` with ``epoch``, ``step``,
+``policy_state_dict`` and ``target_state_dict`` (BatchNorm buffers
+included; ``--dqn-resume`` takes it, or the JAX driver's
+``dqn_checkpoint.msgpack`` with its two ``batch_stats``). As in the JAX
+driver the DQN file holds no RMSprop state, so ``--dqn-resume`` restarts
+its second moment at 0, and the replay memory and the update coins start
+afresh. Like the
 JAX driver it ignores ``-e`` and ``--export-torch``.
 
 ``--dataset imagenet|mscoco DATA`` and ``--canvas-cache`` read image files as
@@ -154,10 +157,16 @@ def train(cfg, device: torch.device):
     dqn_file = os.path.join(cfg.checkpoint_dir, "dqn_checkpoint.pth.tar")
     start_epoch, best_prec1 = resume(cfg, state, len(train_reader), device)
     if cfg.dqn_resume and os.path.isfile(cfg.dqn_resume):
-        payload = ckpt.load_resume(cfg.dqn_resume, map_location=device)
-        policy.load_state_dict(payload["policy_state_dict"])
-        target.load_state_dict(payload["target_state_dict"])
-        policy_state.step = int(payload["step"])
+        payload = ckpt.load_checkpoint(cfg.dqn_resume, map_location=device)
+        if ckpt.is_torch_file(cfg.dqn_resume):
+            policy_sd, target_sd = payload["policy_state_dict"], payload["target_state_dict"]
+            policy_state.step = int(payload["step"])
+        else:
+            # the JAX DQN file holds no optimizer state: RMSprop starts fresh
+            policy_sd, target_sd, policy_state.step = ckpt.jax_dqn_state_dicts(
+                payload, cfg.dqn_resume)
+        ckpt.load_converted(policy, lambda: policy_sd, cfg.dqn_resume, "DQN")
+        ckpt.load_converted(target, lambda: target_sd, cfg.dqn_resume, "DQN")
         print0(f"=> resumed DQN from '{cfg.dqn_resume}' (step {policy_state.step})")
     elif cfg.dqn_resume:
         print0(f"=> no DQN checkpoint found at '{cfg.dqn_resume}'")

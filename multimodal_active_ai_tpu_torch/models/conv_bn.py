@@ -102,15 +102,16 @@ def _unfuse_block(params: dict, stats: dict) -> tuple[dict, dict]:
           _C.format(1): params[_C.format(0)],
           _B.format(1): params[_B.format(0)],
           _C.format(2): c2, _B.format(2): b2}
-    us = {_B.format(0): stats[_F.format(0)],
-          _B.format(1): stats[_B.format(0)],
-          _B.format(2): stats[_F.format(1)]}
+    us = {_B.format(0): stats.get(_F.format(0)),
+          _B.format(1): stats.get(_B.format(0)),
+          _B.format(2): stats.get(_F.format(1))}
     if _F.format(2) in params:
         c3, b3 = split(params[_F.format(2)])
         up[_C.format(3)] = c3
         up[_B.format(3)] = b3
-        us[_B.format(3)] = stats[_F.format(2)]
-    return up, us
+        us[_B.format(3)] = stats.get(_F.format(2))
+    # a parameter-layout tree alone (an optimizer's moments) has no statistics
+    return up, {k: v for k, v in us.items() if v is not None}
 
 
 def is_fused_layout(params) -> bool:

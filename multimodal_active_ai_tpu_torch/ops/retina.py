@@ -1,11 +1,12 @@
-"""The foveated retina, matmul mode: augmentation plan + glimpse pyramid.
+"""The foveated retina: augmentation plan + glimpse pyramid.
 
-Port of ``multimodal_active_ai_tpu/ops/retina.py`` (the default ``matmul``
-mode). A SimCLR view of a source batch is random-resized-crop → rotate →
-grid-mask → flip → 4-level foveal crop pyramid (each level 30×30) →
-Gaussian noise → colour twist, the graph of the reference's DALI
-``UnlabeledFoveatedRetinalProcessor``. The geometric stages compose into
-sampling coordinates; a mip pyramid built once per batch
+Port of ``multimodal_active_ai_tpu/ops/retina.py``, its three modes. A
+SimCLR view of a source batch is random-resized-crop → rotate → grid-mask
+→ flip → 4-level foveal crop pyramid (each level 30×30) → Gaussian noise
+→ colour twist, the graph of the reference's DALI
+``UnlabeledFoveatedRetinalProcessor``. In the default ``matmul`` mode the
+geometric stages compose into sampling coordinates; a mip pyramid built
+once per batch
 (:func:`build_pyramid`) is the antialiasing prefilter, and every level
 samples a static-size window of its mip with
 :func:`~multimodal_active_ai_tpu_torch.ops.glimpse_sample.glimpse_sample`
@@ -13,9 +14,26 @@ samples a static-size window of its mip with
 ``3L`` channels (the JAX package's documented divergence from the
 reference's noise-then-downscale).
 
+The other two modes take the source images instead of a pyramid and
+sample by gather, as the JAX package does (no CUDA kernel):
+
+* ``fused``: the same composed coordinates, each glimpse pixel the mean of
+  an ``ss × ss`` box of bilinear samples (``ss = min(supersample,
+  round(crop/g))``) in place of the mip prefilter; noise ``(B, g, g, 3L)``
+  is added per level before the colour twist;
+* ``canvas``: DALI's graph stage by stage on the whole ``c × c`` canvas
+  (rotate + RandomResizedCrop warp by one bilinear gather, grid mask, noise
+  ``(B, c, c, 3)``, flip, colour twist), then each level's crop resized
+  with the antialiased triangle filter
+  (``image_ops.crop_resize_with_filter``). It is the slow, exact mode held
+  against ``tests/data/dali_golden.npz``.
+
+:func:`foveated_pyramid` is the visualisation pipeline: every crop of one
+image and its resize.
+
 Randomness comes from an explicit ``torch.Generator``; tests may instead
-hand in the augmentation parameters and the noise tensor themselves.
-The ``fused`` and ``canvas`` modes are not ported yet and raise.
+hand in the augmentation parameters and the noise tensor
+(:func:`noise_shape`) themselves.
 """
 
 from __future__ import annotations
@@ -49,7 +67,8 @@ class RetinaConfig:
     hue: float = 90.0
     saturation: float = 0.5
     fixation_angle_range: float = 160.0
-    mode: str = "matmul"   # only 'matmul' is ported
+    supersample: int = 4   # fused mode: the supersample box side, at most
+    mode: str = "matmul"   # 'matmul' (the default) | 'fused' | 'canvas'
 
     @property
     def num_channels(self) -> int:
@@ -306,11 +325,123 @@ def _matmul_batch(mips: dict, p: AugParams, cfg: RetinaConfig,
     return out
 
 
-def _require_matmul(cfg: RetinaConfig) -> None:
-    if cfg.mode != "matmul":
-        raise NotImplementedError(
-            f"retina mode {cfg.mode!r} is not ported yet (ROADMAP: the "
-            "fused/canvas retina modes); use mode='matmul'")
+# ---------------------------------------------------------------------------
+# Fused and canvas modes
+
+
+def _glimpse_sample_grid(cfg: RetinaConfig, crop_size: int,
+                         device: torch.device | str) -> torch.Tensor:
+    """Offsets ``(g, g, ss, ss, 2)`` of one level's supersampled output
+    grid from the crop window's origin; ``ss = max(1, min(supersample,
+    round(crop/g)))`` with Python's ``round`` (half to even), as in JAX."""
+    g = cfg.glimpse_size
+    step = crop_size / g
+    ss = max(1, min(cfg.supersample, round(step)))
+    f32 = dict(dtype=torch.float32, device=device)
+    base = (torch.arange(g, **f32) + 0.5) * step - 0.5
+    sub = ((torch.arange(ss, **f32) + 0.5) / ss - 0.5) * step
+    yy = (base[:, None, None, None] + sub[None, None, :, None]).expand(g, g, ss, ss)
+    xx = (base[None, :, None, None] + sub[None, None, None, :]).expand(g, g, ss, ss)
+    return torch.stack([yy, xx], dim=-1)
+
+
+def _color_twist(img: torch.Tensor, p: AugParams) -> torch.Tensor:
+    """Each image's DALI ``ColorTwist`` over its last axis of 3 channels."""
+    m, b = image_ops.color_twist_matrix(p.brightness, p.contrast, p.hue, p.saturation)
+    lead = (img.shape[0],) + (1,) * (img.dim() - 2)
+    return (torch.einsum("b...c,bdc->b...d", img, m) + b.reshape(lead + (3,)))
+
+
+def _fused_batch(img: torch.Tensor, p: AugParams, cfg: RetinaConfig,
+                 photometric: bool, noise: torch.Tensor | None) -> torch.Tensor:
+    """The fused retina of ``img`` ``(B, S, S, 3)`` float32 →
+    ``(B, g, g, 3L)`` (the JAX ``_fused_single``, batched)."""
+    c = float(cfg.canvas_size)
+    batch = img.shape[0]
+    center = torch.full((2,), (c - 1) / 2, dtype=torch.float32, device=img.device)
+    ext = (batch, 1, 1, 1, 1)
+    glimpses = []
+    for li, crop_size in enumerate(cfg.crop_sizes):
+        grid = _glimpse_sample_grid(cfg, crop_size, img.device)
+        origin = p.fix_yx * (c - crop_size)                  # DALI Crop: pos·(in − crop)
+        coords = grid[None] + origin.reshape(ext + (2,))     # (B, g, g, ss, ss, 2)
+        # the flip acts on the canvas before the pyramid (x → c − 1 − x)
+        x = torch.where(p.flip.reshape(ext), (c - 1.0) - coords[..., 1], coords[..., 1])
+        coords = torch.stack([coords[..., 0], x], dim=-1)
+        keep = image_ops.grid_mask_keep(coords, p.angle, p.fix_yx, p.gm_ratio, p.gm_tile)
+        a = image_ops.rotate_coords(coords, p.angle, center)
+        oob = (a < -0.5).any(-1) | (a > c - 0.5).any(-1)
+        s = (p.rrc_origin_yx.reshape(ext + (2,))
+             + (a + 0.5) * (p.rrc_size_hw.reshape(ext + (2,)) / c) - 0.5)
+        v = image_ops.bilinear_sample(img, s, fill_value=0.0, fill_mask=oob)
+        v = (v * keep[..., None]).mean(dim=(3, 4))          # (B, g, g, 3)
+        if photometric:
+            v = image_ops.add_gaussian_noise(v, p.noise_mean, p.noise_std,
+                                             noise=noise[..., 3 * li:3 * li + 3])
+        glimpses.append(v)
+    out = torch.cat(glimpses, dim=-1)                       # scale-major channels
+    if photometric:
+        levels = len(cfg.crop_sizes)
+        out = _color_twist(out.reshape(out.shape[:-1] + (levels, 3)), p).reshape(out.shape)
+    return out
+
+
+def _canvas_grid(c: int, device: torch.device | str) -> torch.Tensor:
+    """Integer pixel coordinates ``(c, c, 2)`` ``(y, x)`` of the canvas."""
+    ar = torch.arange(c, dtype=torch.float32, device=device)
+    gy, gx = torch.meshgrid(ar, ar, indexing="ij")
+    return torch.stack([gy, gx], dim=-1)
+
+
+def _rotated_canvas(img: torch.Tensor, angle: torch.Tensor, c: int,
+                    warp=None) -> torch.Tensor:
+    """``img`` rotated by ``angle`` about the canvas centre (inverse warp,
+    zero fill outside the canvas) into ``(B, c, c, 3)``; ``warp`` maps the
+    rotated canvas coordinates into the source (the RandomResizedCrop)."""
+    grid = _canvas_grid(c, img.device).expand((img.shape[0], c, c, 2))
+    center = torch.full((2,), (c - 1) / 2, dtype=torch.float32, device=img.device)
+    a = image_ops.rotate_coords(grid, angle, center)
+    oob = (a < -0.5).any(-1) | (a > c - 0.5).any(-1)
+    return image_ops.bilinear_sample(img, a if warp is None else warp(a),
+                                     fill_value=0.0, fill_mask=oob)
+
+
+def _canvas_batch(img: torch.Tensor, p: AugParams, cfg: RetinaConfig,
+                  photometric: bool, noise: torch.Tensor | None) -> torch.Tensor:
+    """The DALI-faithful canvas retina of ``img`` ``(B, S, S, 3)`` float32
+    → ``(B, g, g, 3L)`` (the JAX ``_canvas_single``, batched)."""
+    c = cfg.canvas_size
+    ext = (img.shape[0], 1, 1, 2)
+    canvas = _rotated_canvas(
+        img, p.angle, c,
+        lambda a: (p.rrc_origin_yx.reshape(ext)
+                   + (a + 0.5) * (p.rrc_size_hw.reshape(ext) / c) - 0.5))
+    if photometric:
+        grid = _canvas_grid(c, img.device).expand(canvas.shape[:3] + (2,))
+        keep = image_ops.grid_mask_keep(grid, p.angle, p.fix_yx, p.gm_ratio, p.gm_tile)
+        canvas = image_ops.add_gaussian_noise(canvas * keep[..., None], p.noise_mean,
+                                              p.noise_std, noise=noise)
+    canvas = image_ops.hflip(canvas, p.flip)
+    if photometric:
+        canvas = _color_twist(canvas, p)
+    g = cfg.glimpse_size
+    return torch.cat([image_ops.crop_resize_with_filter(canvas, p.fix_yx * (c - crop),
+                                                        (crop, crop), (g, g))
+                      for crop in cfg.crop_sizes], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Public pipelines
+
+
+def noise_shape(cfg: RetinaConfig, batch: int) -> tuple[int, ...]:
+    """The standard-normal draw one photometric view of ``batch`` images
+    adds: ``(B, g, g, 3L)`` glimpse noise in the ``matmul`` and ``fused``
+    modes (``fused`` adds level ``l``'s ``[..., 3l:3l+3]`` before the
+    colour twist), ``(B, c, c, 3)`` canvas noise in ``canvas`` mode."""
+    if cfg.mode == "canvas":
+        return (batch, cfg.canvas_size, cfg.canvas_size, 3)
+    return (batch, cfg.glimpse_size, cfg.glimpse_size, cfg.num_channels)
 
 
 def apply_retina(images: torch.Tensor | None, params: AugParams,
@@ -320,25 +451,64 @@ def apply_retina(images: torch.Tensor | None, params: AugParams,
                  noise: torch.Tensor | None = None) -> torch.Tensor:
     """One retina view of a batch → ``(B, g, g, 3L)`` float32 NHWC glimpses.
 
-    Pass ``pyramid=build_pyramid(images, cfg)`` when running several views
-    of the same batch. With ``photometric``, the standard-normal noise
-    ``(B, g, g, 3L)`` is drawn from ``generator`` or given as ``noise``.
+    ``matmul`` mode: pass ``pyramid=build_pyramid(images, cfg)`` when
+    running several views of the same batch. ``fused`` and ``canvas`` read
+    ``images`` (uint8 or float, cast to float32) and ignore ``pyramid``.
+    With ``photometric``, the standard-normal noise of shape
+    :func:`noise_shape` is drawn from ``generator`` or given as ``noise``.
     """
-    _require_matmul(cfg)
-    if pyramid is None:
-        pyramid = build_pyramid(images, cfg)
-    return _matmul_batch(pyramid, params, cfg, photometric, generator, noise)
+    if cfg.mode == "matmul":
+        if pyramid is None:
+            pyramid = build_pyramid(images, cfg)
+        return _matmul_batch(pyramid, params, cfg, photometric, generator, noise)
+    single = {"fused": _fused_batch, "canvas": _canvas_batch}.get(cfg.mode)
+    if single is None:
+        raise ValueError(f"unknown retina mode {cfg.mode!r} (matmul, fused or canvas)")
+    images = images.to(torch.float32)
+    if photometric and noise is None:
+        noise = torch.randn(noise_shape(cfg, images.shape[0]), generator=generator,
+                            device=images.device)
+    return single(images, params, cfg, photometric, noise)
 
 
 def apply_retina_views(pyramid: dict, params_views: AugParams,
                        cfg: RetinaConfig, photometric: bool,
                        generator: torch.Generator | None = None,
                        noise: torch.Tensor | None = None) -> torch.Tensor:
-    """All ``V`` views of one source batch in one sampler call.
+    """All ``V`` views of one source batch in one sampler call (``matmul``
+    mode only, as in the JAX package).
 
     ``params_views`` has leading dim ``V·B``, view-major (plan row
     ``v·B + i`` samples source image ``i``); ``noise``, when given, is
     ``(V·B, g, g, 3L)`` in the same order. Returns ``(V·B, g, g, 3L)``.
     """
-    _require_matmul(cfg)
+    if cfg.mode != "matmul":
+        raise ValueError("apply_retina_views requires the matmul retina")
     return _matmul_batch(pyramid, params_views, cfg, photometric, generator, noise)
+
+
+def foveated_pyramid(image: torch.Tensor, fix_yx: torch.Tensor, angle: torch.Tensor,
+                     cfg: RetinaConfig | None = None):
+    """The visualisation pipeline of one image ``(S, S, 3)``: its canvas
+    (resized to ``c`` if need be) rotated by ``angle`` about the centre, and
+    every crop (``c`` and the configured sizes) at ``fix_yx`` ``(2,)`` with
+    its ``g × g`` resize. Returns ``(crops, resizes)``. A crop's origin is
+    ``fix·(c − crop)`` rounded half to even and clamped into the canvas,
+    as ``lax.dynamic_slice`` clamps it."""
+    cfg = cfg or RetinaConfig()
+    c = cfg.canvas_size
+    img = image.to(torch.float32)[None]
+    if img.shape[1] != c:
+        img = image_ops.resize_with_filter(img, (c, c))
+    angle = torch.as_tensor(angle, dtype=torch.float32, device=img.device).reshape(1)
+    canvas = _rotated_canvas(img, angle, c)[0]
+    fix_yx = torch.as_tensor(fix_yx, dtype=torch.float32, device=img.device)
+    g = cfg.glimpse_size
+    crops, resizes = [], []
+    for crop_size in (c,) + tuple(cfg.crop_sizes):
+        oy, ox = torch.round(fix_yx * (c - crop_size)).to(torch.int64).clamp(
+            0, c - crop_size).tolist()
+        crop = canvas[oy:oy + crop_size, ox:ox + crop_size]
+        crops.append(crop)
+        resizes.append(image_ops.resize_with_filter(crop[None], (g, g))[0])
+    return crops, resizes

@@ -23,8 +23,9 @@ reference's four-key schema (``epoch``, ``state_dict``, ``best_prec1``,
 ``optimizer``); ``--resume`` takes one of them (or an ``--export-torch``
 file, whose optimizer state is empty, so the moments restart), ``-e`` only
 validates, and ``--export-torch`` writes the probe's ``state_dict``, which
-is the reference layout. ``--resume`` of a JAX checkpoint raises
-(its optax state is not carried yet).
+is the reference layout. ``--resume`` also takes the JAX package's
+``classifier_checkpoint.msgpack``: the probe's params and its optax state
+(moments and counts), the schedule following optax's count.
 
 ``--dataset imagenet|mscoco DATA`` and ``--canvas-cache`` read image files as
 the SimCLR driver does (:func:`~multimodal_active_ai_tpu_torch.
@@ -129,14 +130,20 @@ def train(cfg, device: torch.device):
     best_prec1 = 0.0
     start_epoch = cfg.start_epoch
     if cfg.resume and os.path.isfile(cfg.resume):
-        payload = ckpt.load_resume(cfg.resume, map_location=device)
-        probe.load_state_dict(payload["state_dict"])
+        payload = ckpt.load_checkpoint(cfg.resume, map_location=device)
+        if ckpt.is_torch_file(cfg.resume):
+            probe.load_state_dict(payload["state_dict"])
+            if payload["optimizer"] is not None:
+                opt.load_state_dict(payload["optimizer"])
+            taken = optimizers.updates_taken(opt)
+        else:
+            # the JAX probe's params and optax state; the schedule follows its count
+            taken = ckpt.resume_jax_probe(payload, probe, opt, cfg.optimizer,
+                                          cfg.num_fixations, cfg.resume)
         start_epoch = int(payload["epoch"])
         best_prec1 = float(payload["best_prec1"])
-        if payload["optimizer"] is not None:
-            opt.load_state_dict(payload["optimizer"])
-        taken = optimizers.updates_taken(opt)
         state.step = start_epoch * len(train_reader) if taken is None else taken
+        state.count = state.step
         print0(f"=> resumed classifier from '{cfg.resume}' (epoch {start_epoch}, "
                f"step {state.step})")
     elif cfg.resume:

@@ -35,8 +35,7 @@ from multimodal_active_ai_tpu_torch.objectives.ntxent import contrastive_loss
 from multimodal_active_ai_tpu_torch.ops import retina
 from multimodal_active_ai_tpu_torch.parallel import average_gradients
 from multimodal_active_ai_tpu_torch.train.eval_probe import extract_features
-from multimodal_active_ai_tpu_torch.train.optimizers import set_learning_rate
-from multimodal_active_ai_tpu_torch.train.simclr_train import TrainState
+from multimodal_active_ai_tpu_torch.train.simclr_train import TrainState, scheduled_update
 from multimodal_active_ai_tpu_torch.utils.meters import mean_across_replicas
 from multimodal_active_ai_tpu_torch.utils.metrics import top_k_accuracy
 
@@ -81,9 +80,7 @@ def make_caption_probe_train_step(retina_cfg: retina.RetinaConfig, num_fixations
         opt.zero_grad(set_to_none=True)
         loss.backward()
         average_gradients(towers.parameters())
-        set_learning_rate(opt, state.schedule(state.step))
-        opt.step()
-        state.step += 1
+        scheduled_update(state)
         return mean_across_replicas({"loss": loss.detach()})
 
     return step

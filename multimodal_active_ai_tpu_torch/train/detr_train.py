@@ -87,9 +87,12 @@ def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
     """optax's ``clip_by_global_norm`` on the ``.grad`` of ``params``, in
     place: gradients scale by ``max_norm / norm`` when the global norm is at
     least ``max_norm`` (``max_norm`` ≤ 0: no clip). Returns the norm before
-    clipping, a device scalar."""
+    clipping, a float32 device scalar. Each tensor's sum of squares
+    accumulates in float64: torch's float32 norm on the CPU drifts by
+    ~1e-4 relative over a few million elements, XLA's does not."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.nn.utils.get_total_norm(grads)
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+        grads, 2, dtype=torch.float64))).to(grads[0].dtype)
     if max_norm and max_norm > 0:
         torch._foreach_mul_(grads, torch.clamp(max_norm / norm, max=1.0))
     return norm
@@ -97,19 +100,26 @@ def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
 
 def apply_update(state: TrainState, loss: torch.Tensor, clip_max_norm: float) -> torch.Tensor:
     """One update of the DETR optimizer chain on ``loss``: backward, the
-    gradient averaged over ranks, the global-norm clip over every gradient,
-    each group's StepLR rate, AdamW; ``state.step`` advances by one.
-    Returns the norm before clipping."""
-    model, opt = state.model, state.optimizer
-    model.zero_grad(set_to_none=True)
+    gradient averaged over ranks, then :func:`update_from_grads`. Returns
+    the norm before clipping."""
+    state.model.zero_grad(set_to_none=True)
     loss.backward()
-    average_gradients(model.parameters())
-    norm = clip_by_global_norm_(model.parameters(), clip_max_norm)
-    factor = state.schedule(state.step)
-    for group in opt.param_groups:
+    average_gradients(state.model.parameters())
+    return update_from_grads(state, clip_max_norm)
+
+
+def update_from_grads(state: TrainState, clip_max_norm: float) -> torch.Tensor:
+    """The optimizer chain on the gradients in place: the global-norm clip
+    over every gradient, each group's StepLR rate at ``state.count`` (the
+    AdamW count the JAX schedule reads), AdamW; ``state.step`` and
+    ``state.count`` advance by one. Returns the norm before clipping."""
+    norm = clip_by_global_norm_(state.model.parameters(), clip_max_norm)
+    factor = state.schedule(state.count)
+    for group in state.optimizer.param_groups:
         group["lr"] = group["base_lr"] * factor
-    opt.step()
+    state.optimizer.step()
     state.step += 1
+    state.count += 1
     return norm
 
 
@@ -124,7 +134,9 @@ def collect_glimpse_sequence(images: torch.Tensor, retina_cfg: retina.RetinaConf
     [min_fixations, F]`` is drawn once per batch (or given) and becomes a
     pad mask over the static ``F``; the saccades ``(B, F, 2)`` are drawn
     ~ U[0,1)² (or given), stored (x, y) and fed to the retina as (y, x).
-    All ``F·B`` plan rows, view-major, go to the sampler in one call.
+    All ``F·B`` plan rows, view-major, go to the sampler in one call
+    (``matmul`` mode; the ``fused`` and ``canvas`` retinas take one call a
+    fixation).
     Returns ``(glimpses (B, F, g, g, 12), saccades (B, F, 2), mask (B, F))``
     with True on padded positions.
     """
@@ -136,12 +148,19 @@ def collect_glimpse_sequence(images: torch.Tensor, retina_cfg: retina.RetinaConf
         glob = torch.rand((num_fixations, batch * world_size(), 2), generator=generator,
                           device=generator.device)
         saccades = local_rows(glob, 1).transpose(0, 1)
-    pyramid = retina.build_pyramid(images, retina_cfg)
-    fix_xy = saccades.transpose(0, 1).reshape(num_fixations * batch, 2)
-    params = retina.sample_labeled_params(None, num_fixations * batch, src,
-                                          fix_yx=fix_xy.flip(-1))
-    g = retina.apply_retina_views(pyramid, params, retina_cfg, photometric=False)
-    glimpses = g.reshape((num_fixations, batch) + g.shape[1:]).transpose(0, 1)
+    if retina_cfg.mode == "matmul":
+        pyramid = retina.build_pyramid(images, retina_cfg)
+        fix_xy = saccades.transpose(0, 1).reshape(num_fixations * batch, 2)
+        params = retina.sample_labeled_params(None, num_fixations * batch, src,
+                                              fix_yx=fix_xy.flip(-1))
+        g = retina.apply_retina_views(pyramid, params, retina_cfg, photometric=False)
+        glimpses = g.reshape((num_fixations, batch) + g.shape[1:]).transpose(0, 1)
+    else:
+        # fused/canvas: one retina call a fixation, as in the JAX package
+        glimpses = torch.stack([retina.apply_retina(
+            images, retina.sample_labeled_params(None, batch, src,
+                                                 fix_yx=saccades[:, j].flip(-1)),
+            retina_cfg, photometric=False) for j in range(num_fixations)], dim=1)
     positions = torch.arange(num_fixations, device=images.device)
     mask = (positions >= torch.as_tensor(num_fixs, device=images.device))
     return glimpses, saccades, mask[None].expand(batch, num_fixations)

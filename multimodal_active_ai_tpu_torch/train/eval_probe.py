@@ -5,8 +5,10 @@ Port of ``multimodal_active_ai_tpu/train/eval_probe.py`` (reference
 once, samples all ``F`` labeled fixations of the batch in one
 ``apply_retina_views`` call over the view-major ``F·B`` plan (one glimpse
 sampler launch), runs one ``F·B`` encoder forward in eval mode under
-``no_grad``, and concatenates each image's ``F`` feature maps into the
-probe input ``(B, F·C·16)``. Each fixation's block is flattened C-major, the
+``no_grad`` (the ``fused`` and ``canvas`` retinas: one retina call and
+one ``B``-row forward a fixation, as in the JAX package), and
+concatenates each image's ``F`` feature maps into the probe input
+``(B, F·C·16)``. Each fixation's block is flattened C-major, the
 reference's order (``Representation_Evaluation.py:430-433``); the JAX
 package flattens NHWC, so weights carried across are permuted per block
 (``utils.checkpoint.from_jax_probe_variables``).
@@ -27,8 +29,7 @@ import torch.nn.functional as F
 
 from multimodal_active_ai_tpu_torch.ops import retina
 from multimodal_active_ai_tpu_torch.parallel import average_gradients, local_rows, world_size
-from multimodal_active_ai_tpu_torch.train.optimizers import set_learning_rate
-from multimodal_active_ai_tpu_torch.train.simclr_train import TrainState
+from multimodal_active_ai_tpu_torch.train.simclr_train import TrainState, scheduled_update
 from multimodal_active_ai_tpu_torch.utils.meters import mean_across_replicas
 from multimodal_active_ai_tpu_torch.utils.metrics import top_k_accuracy
 
@@ -46,16 +47,22 @@ def extract_features(encoder: torch.nn.Module, images: torch.Tensor,
     is put in eval mode, so its BatchNorms use their running statistics.
     """
     batch, src = images.shape[0], images.shape[1]
-    pyramid = retina.build_pyramid(images, retina_cfg)
     if fix_yx is None:
         # the global batch's view-major draws, this rank's rows of each view
         glob = torch.rand((num_fixations, batch * world_size(), 2), generator=generator,
                           device=generator.device)
         fix_yx = local_rows(glob, 1).reshape(num_fixations * batch, 2)
     params = retina.sample_labeled_params(None, num_fixations * batch, src, fix_yx)
-    glimpses = retina.apply_retina_views(pyramid, params, retina_cfg, photometric=False)
     encoder.eval()
-    feats = encoder.features(glimpses)                          # (F·B, 4, 4, C)
+    if retina_cfg.mode == "matmul":
+        pyramid = retina.build_pyramid(images, retina_cfg)
+        glimpses = retina.apply_retina_views(pyramid, params, retina_cfg, photometric=False)
+        feats = encoder.features(glimpses)                      # (F·B, 4, 4, C)
+    else:
+        # fused/canvas: one retina call and one B-row forward a fixation
+        feats = torch.cat([encoder.features(retina.apply_retina(
+            images, retina.AugParams(*(f[j * batch:(j + 1) * batch] for f in params)),
+            retina_cfg, photometric=False)) for j in range(num_fixations)])
     feats = feats.permute(0, 3, 1, 2).reshape(num_fixations, batch, -1)
     return feats.transpose(0, 1).reshape(batch, -1).to(torch.float32)
 
@@ -77,9 +84,7 @@ def make_probe_train_step(retina_cfg: retina.RetinaConfig, num_fixations: int):
         opt.zero_grad(set_to_none=True)
         loss.backward()
         average_gradients(probe.parameters())
-        set_learning_rate(opt, state.schedule(state.step))
-        opt.step()
-        state.step += 1
+        scheduled_update(state)
         return mean_across_replicas({"loss": loss.detach()})
 
     return step

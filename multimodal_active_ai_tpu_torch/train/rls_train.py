@@ -4,7 +4,8 @@ Port of ``multimodal_active_ai_tpu/train/rls_train.py`` (reference
 ``DETR_Image_Classification_RLS.py:657-849`` + ``DQN/Training.py``). While
 the DETR classifier trains, a DQN learns where to look next:
 
-* the rollout is sequential: one mip pyramid per batch, then per fixation
+* the rollout is sequential: one mip pyramid per batch (``matmul`` mode;
+  the ``fused`` and ``canvas`` retinas read the images), then per fixation
   the labeled retina at a saccade that is random (fixation 0, epoch 0, or
   the ε coin) or the policy's greedy argmax on the previous glimpse, one
   glimpse-sampler launch of ``B`` plan rows each; ``num_fixs ∈ [2,
@@ -45,8 +46,7 @@ from multimodal_active_ai_tpu_torch.ops import retina
 from multimodal_active_ai_tpu_torch.parallel import average_gradients, local_rows, world_size
 from multimodal_active_ai_tpu_torch.rl.policy import eps_threshold, select_action_from_policy
 from multimodal_active_ai_tpu_torch.train import detr_train
-from multimodal_active_ai_tpu_torch.train.optimizers import set_learning_rate
-from multimodal_active_ai_tpu_torch.train.simclr_train import TrainState
+from multimodal_active_ai_tpu_torch.train.simclr_train import TrainState, scheduled_update
 from multimodal_active_ai_tpu_torch.utils.meters import mean_across_replicas
 from multimodal_active_ai_tpu_torch.utils.metrics import top_k_accuracy
 
@@ -92,7 +92,8 @@ def make_rollout(retina_cfg: retina.RetinaConfig, num_fixations: int, num_of_act
                 epoch: int) -> RolloutResult:
         batch, src = images.shape[0], images.shape[1]
         thr = eps_threshold(epoch, eps_start, eps_end, eps_decay)
-        pyramid = retina.build_pyramid(images, retina_cfg)
+        pyramid = (retina.build_pyramid(images, retina_cfg)
+                   if retina_cfg.mode == "matmul" else None)
         glimpses, saccades = [], []
         for j in range(num_fixations):
             if j == 0 or epoch == 0 or draws.coins[j] <= thr:
@@ -100,7 +101,7 @@ def make_rollout(retina_cfg: retina.RetinaConfig, num_fixations: int, num_of_act
             else:
                 fix_xy = select_action_from_policy(dqn, glimpses[-1], num_of_actions)
             p = retina.sample_labeled_params(None, batch, src, fix_yx=fix_xy.flip(-1))
-            glimpses.append(retina.apply_retina(None, p, retina_cfg, photometric=False,
+            glimpses.append(retina.apply_retina(images, p, retina_cfg, photometric=False,
                                                 pyramid=pyramid))
             saccades.append(fix_xy)
         positions = torch.arange(num_fixations, device=images.device)
@@ -173,8 +174,8 @@ def make_dqn_update_step(num_of_actions: int, gamma: float):
     target in eval mode without gradient, every gradient averaged over
     ranks and clamped to ±1 elementwise (the reference's
     ``param.grad.data.clamp_(-1, 1)``), then one update of the policy's
-    optimizer at ``policy_state.schedule(step)``; ``policy_state.step``
-    advances by one."""
+    optimizer at ``policy_state.schedule(count)``; ``policy_state.step``
+    and ``count`` advance by one."""
 
     def step(policy_state: TrainState, target: torch.nn.Module, transition) -> torch.Tensor:
         states, actions, next_states, rewards = transition
@@ -191,9 +192,7 @@ def make_dqn_update_step(num_of_actions: int, gamma: float):
         grads = [p.grad for p in policy.parameters() if p.grad is not None]
         torch._foreach_clamp_min_(grads, -1.0)
         torch._foreach_clamp_max_(grads, 1.0)
-        set_learning_rate(opt, policy_state.schedule(policy_state.step))
-        opt.step()
-        policy_state.step += 1
+        scheduled_update(policy_state)
         return mean_across_replicas({"loss": loss.detach()})["loss"]
 
     return step

@@ -4,7 +4,8 @@ Port of ``multimodal_active_ai_tpu/train/simclr_train.py:79-203`` (the
 reference hot loop ``Contrastive_Learning.py:577-740``). One train step on a
 uint8 ``(B, S, S, 3)`` batch:
 
-* builds the mip pyramid once;
+* builds the mip pyramid once (``matmul`` mode; the ``fused`` and
+  ``canvas`` retinas read the images);
 * runs one retina call per view, ``1 + num_fixations`` views;
 * forwards the first view in train mode under ``no_grad`` (BatchNorm
   statistics update, no gradient);
@@ -47,26 +48,42 @@ from multimodal_active_ai_tpu_torch.utils.metrics import top_k_accuracy
 
 @dataclass
 class TrainState:
-    """The model, its optimizer, the schedule and the number of optimizer
-    updates made so far (the schedule's argument)."""
+    """The model, its optimizer, the schedule, the number of updates made
+    so far (``step``, the JAX ``TrainState.step``) and the optimizer's own
+    update count (``count``, optax's ``count``), which is the schedule's
+    argument. The two differ only after a resume that starts the optimizer
+    afresh but keeps the step: the schedule then restarts at 0, as optax's
+    does."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     schedule: Callable[[int], float]
     step: int = 0
+    count: int = 0
+
+
+def scheduled_update(state: TrainState) -> None:
+    """One optimizer update from the gradients in place, at the schedule's
+    rate for ``state.count``; ``step`` and ``count`` advance by one."""
+    set_learning_rate(state.optimizer, state.schedule(state.count))
+    state.optimizer.step()
+    state.step += 1
+    state.count += 1
 
 
 def _view_fn(images: torch.Tensor, cfg: retina.RetinaConfig,
              generator: torch.Generator | None,
              params: Sequence[retina.AugParams] | None,
              noise: Sequence[torch.Tensor] | None):
-    """``view(j)`` → glimpses of view ``j`` over a pyramid built once. The
-    draws are the global batch's, in the single-process order (parameters,
-    then noise); this rank keeps its rows."""
+    """``view(j)`` → glimpses of view ``j`` (``matmul`` mode: over a
+    pyramid built once; ``fused``/``canvas``: from the images). The draws
+    are the global batch's, in the single-process order (parameters, then
+    noise of the mode's :func:`~retina.noise_shape`); this rank keeps its
+    rows."""
     src = images.shape[1]
     glob = images.shape[0] * world_size()
-    pyramid = retina.build_pyramid(images, cfg)
-    shape = (glob, cfg.glimpse_size, cfg.glimpse_size, cfg.num_channels)
+    pyramid = retina.build_pyramid(images, cfg) if cfg.mode == "matmul" else None
+    shape = retina.noise_shape(cfg, glob)
 
     def view(j: int) -> torch.Tensor:
         if params is not None:
@@ -75,7 +92,7 @@ def _view_fn(images: torch.Tensor, cfg: retina.RetinaConfig,
             p = retina.AugParams(*map(local_rows, retina.sample_unlabeled_params(
                 generator, glob, src, cfg)))
             nz = local_rows(torch.randn(shape, generator=generator, device=generator.device))
-        return retina.apply_retina(None, p, cfg, photometric=True,
+        return retina.apply_retina(images, p, cfg, photometric=True,
                                    pyramid=pyramid, generator=generator, noise=nz)
 
     return view
@@ -84,8 +101,8 @@ def _view_fn(images: torch.Tensor, cfg: retina.RetinaConfig,
 def make_train_step(retina_cfg: retina.RetinaConfig, num_fixations: int,
                     temperature: float):
     """Returns ``step(state, images, generator=None, params=None,
-    noise=None) -> losses`` ``(num_fixations,)``; ``state.step`` advances
-    by ``num_fixations``."""
+    noise=None) -> losses`` ``(num_fixations,)``; ``state.step`` and
+    ``state.count`` advance by ``num_fixations``."""
 
     def step(state: TrainState, images: torch.Tensor,
              generator: torch.Generator | None = None,
@@ -104,9 +121,7 @@ def make_train_step(retina_cfg: retina.RetinaConfig, num_fixations: int,
             opt.zero_grad(set_to_none=True)
             loss.backward()
             average_gradients(model.parameters())
-            set_learning_rate(opt, state.schedule(state.step))
-            opt.step()
-            state.step += 1
+            scheduled_update(state)
             losses.append(loss.detach())
             h1 = h2.detach()
         return mean_across_replicas({"losses": torch.stack(losses)})["losses"]

@@ -36,6 +36,14 @@
   files (:mod:`~multimodal_active_ai_tpu_torch.utils.flax_msgpack`), and
   :func:`simclr_state_dict` turns a JAX SimCLR payload into this
   package's ``state_dict``.
+* :func:`resume_jax_simclr`, :func:`resume_jax_probe`,
+  :func:`resume_jax_detr` and :func:`jax_dqn_state_dicts` resume a
+  driver from the JAX package's own checkpoint of it: the weights through
+  the maps above, the optax state through
+  :func:`~multimodal_active_ai_tpu_torch.train.optimizers.load_optax_state`
+  with the same maps, the JAX drivers' rules on what carries. A payload
+  that lacks a key the JAX driver reads, or whose trees are not this
+  model's, raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ import torch
 
 from multimodal_active_ai_tpu_torch.models.conv_bn import is_fused_layout, unfuse_variables
 from multimodal_active_ai_tpu_torch.models.norm import FrozenBatchNorm
+from multimodal_active_ai_tpu_torch.train.optimizers import load_optax_state
 from multimodal_active_ai_tpu_torch.utils import flax_msgpack
 
 
@@ -101,14 +110,18 @@ def linear_on_flattened_conv(kernel, chw: tuple[int, int, int]) -> np.ndarray:
         .reshape(out_dim, c * h * w))
 
 
-def _from_jax_encoder_and_heads(params: dict, batch_stats: dict, heads: tuple[str, ...]
-                                ) -> "OrderedDict[str, torch.Tensor]":
+def _from_jax_encoder_and_heads(params: dict, batch_stats: dict | None,
+                                heads: tuple[str, ...]) -> "OrderedDict[str, torch.Tensor]":
     """The encoder ``f`` and the ``MLP`` heads named ``heads`` of a JAX
     module's variables → the port's ``state_dict`` (``f.*``,
-    ``<head>.layers.{0,2}.*``); a head missing from ``params`` is skipped."""
-    params, batch_stats = _as_batchnorm_slots(params), _as_batchnorm_slots(batch_stats)
+    ``<head>.layers.{0,2}.*``); a head missing from ``params`` is skipped.
+    With ``batch_stats=None`` only the parameters are mapped (any tree in
+    the parameters' layout, such as an optimizer's moments): every map is
+    a pure reordering, so moments map as the weights do."""
+    params = _as_batchnorm_slots(params)
+    stats = _as_batchnorm_slots(batch_stats) if batch_stats is not None else {}
     if is_fused_layout(params):
-        params, batch_stats = unfuse_variables(params, batch_stats)
+        params, stats = unfuse_variables(params, stats)
     sd: OrderedDict[str, torch.Tensor] = OrderedDict()
 
     def put(key, value, dtype=np.float32):
@@ -117,30 +130,31 @@ def _from_jax_encoder_and_heads(params: dict, batch_stats: dict, heads: tuple[st
     def put_bn(tkey, p_bn, s_bn):
         put(tkey + ".weight", p_bn["scale"])
         put(tkey + ".bias", p_bn["bias"])
-        put(tkey + ".running_mean", s_bn["mean"])
-        put(tkey + ".running_var", s_bn["var"])
-        put(tkey + ".num_batches_tracked", 0, np.int64)
+        if batch_stats is not None:
+            put(tkey + ".running_mean", s_bn["mean"])
+            put(tkey + ".running_var", s_bn["var"])
+            put(tkey + ".num_batches_tracked", 0, np.int64)
 
-    f_params, f_stats = params["f"], batch_stats["f"]
+    f_params, f_stats = params["f"], stats.get("f", {})
     put("f.conv1.weight", _conv_hwio_to_oihw(f_params["conv1"]["kernel"]))
-    put_bn("f.bn1", f_params["bn1"], f_stats["bn1"])
+    put_bn("f.bn1", f_params["bn1"], f_stats.get("bn1"))
     for name in f_params:
         if not name.startswith("layer"):
             continue
         stage, idx = name[5:].split("_")
         prefix = f"f.layer{stage}.{idx}."
-        block_p, block_s = f_params[name], f_stats[name]
+        block_p, block_s = f_params[name], f_stats.get(name, {})
         convs = _sorted_slots(block_p, "Conv_")
         bns = _sorted_slots(block_p, "BatchNorm_")
         has_down = _has_downsample(block_p, convs)
         for j in range(len(convs) - (1 if has_down else 0)):
             put(f"{prefix}conv{j + 1}.weight",
                 _conv_hwio_to_oihw(block_p[convs[j]]["kernel"]))
-            put_bn(f"{prefix}bn{j + 1}", block_p[bns[j]], block_s[bns[j]])
+            put_bn(f"{prefix}bn{j + 1}", block_p[bns[j]], block_s.get(bns[j]))
         if has_down:
             put(prefix + "downsample.0.weight",
                 _conv_hwio_to_oihw(block_p[convs[-1]]["kernel"]))
-            put_bn(prefix + "downsample.1", block_p[bns[-1]], block_s[bns[-1]])
+            put_bn(prefix + "downsample.1", block_p[bns[-1]], block_s.get(bns[-1]))
 
     for head in heads:
         if head not in params:
@@ -155,17 +169,21 @@ def _from_jax_encoder_and_heads(params: dict, batch_stats: dict, heads: tuple[st
     return sd
 
 
-def from_jax_variables(params: dict, batch_stats: dict) -> "OrderedDict[str, torch.Tensor]":
+def from_jax_variables(params: dict, batch_stats: dict | None
+                       ) -> "OrderedDict[str, torch.Tensor]":
     """JAX ``SimCLRModule`` variables → this package's ``state_dict``.
 
     Values are float32 tensors; ``num_batches_tracked`` is an int64 zero,
     as the reference torch checkpoints carry it. Either Bottleneck layout
     and either BatchNorm kind is accepted (their slots are mapped first).
+    ``batch_stats=None`` maps a parameter-layout tree alone (the
+    parameters' entries only; an optimizer's moments).
     """
     return _from_jax_encoder_and_heads(params, batch_stats, ("g",))
 
 
-def from_jax_dqn_variables(params: dict, batch_stats: dict) -> "OrderedDict[str, torch.Tensor]":
+def from_jax_dqn_variables(params: dict, batch_stats: dict | None
+                           ) -> "OrderedDict[str, torch.Tensor]":
     """JAX ``DQN`` variables (``norm_kind='bn'``) → the port DQN's
     ``state_dict``: the trunk as :func:`from_jax_variables` maps ``f``, and
     the heads ``g_x``/``g_y`` as it maps ``g`` (each ``Dense_0`` permuted
@@ -314,7 +332,7 @@ def from_jax_caption_variables(params: dict, num_fixations: int
     return sd
 
 
-def from_jax_detr_variables(params: dict, batch_stats: dict
+def from_jax_detr_variables(params: dict, batch_stats: dict | None
                             ) -> "OrderedDict[str, torch.Tensor]":
     """JAX ``DETR`` variables (FrozenBatchNorm backbone) → the port's DETR
     ``state_dict``, the reference ``detr_CLA`` layout of
@@ -322,39 +340,44 @@ def from_jax_detr_variables(params: dict, batch_stats: dict
     FrozenBatchNorm buffers (no ``num_batches_tracked``), the transformer's
     packed attention projections, ``input_proj.weight`` ``(out, C·16, 1)``
     over the C-major flatten, ``query_embed``, ``class_embed`` and, for the
-    learned embedding, ``backbone.1.{row,col}_embed.weight``."""
+    learned embedding, ``backbone.1.{row,col}_embed.weight``.
+    ``batch_stats=None`` maps a parameter-layout tree alone (no buffers; an
+    optimizer's moments)."""
     sd: OrderedDict[str, torch.Tensor] = OrderedDict()
 
     def put(key, value):
         sd[key] = torch.from_numpy(np.array(value, dtype=np.float32))
 
     def put_frozen(tkey, s_bn):
+        if s_bn is None:
+            return
         for name, slot in (("weight", "weight"), ("bias", "bias"),
                            ("running_mean", "mean"), ("running_var", "var")):
             put(f"{tkey}.{name}", s_bn[slot])
 
     bb = "backbone.0.body."
-    f_params, f_stats = params["backbone_f"], batch_stats.get("backbone_f")
+    f_params = params["backbone_f"]
+    f_stats = {} if batch_stats is None else batch_stats.get("backbone_f")
     if f_stats is None:
         raise ValueError("from_jax_detr_variables carries FrozenBatchNorm backbones; "
                          "these variables have no backbone statistics")
     put(bb + "conv1.weight", _conv_hwio_to_oihw(f_params["conv1"]["kernel"]))
-    put_frozen(bb + "bn1", f_stats["bn1"])
+    put_frozen(bb + "bn1", f_stats.get("bn1"))
     for name in f_params:
         if not name.startswith("layer"):
             continue
         stage, idx = name[5:].split("_")
         prefix = f"{bb}layer{stage}.{idx}."
-        block_p, block_s = f_params[name], f_stats[name]
+        block_p, block_s = f_params[name], f_stats.get(name, {})
         convs = _sorted_slots(block_p, "Conv_")
-        fbns = _sorted_slots(block_s, "FrozenBatchNorm_")
+        fbns = _sorted_slots(block_s, "FrozenBatchNorm_") or [None] * len(convs)
         has_down = _has_downsample(block_p, convs)
         for j in range(len(convs) - (1 if has_down else 0)):
             put(f"{prefix}conv{j + 1}.weight", _conv_hwio_to_oihw(block_p[convs[j]]["kernel"]))
-            put_frozen(f"{prefix}bn{j + 1}", block_s[fbns[j]])
+            put_frozen(f"{prefix}bn{j + 1}", block_s.get(fbns[j]))
         if has_down:
             put(prefix + "downsample.0.weight", _conv_hwio_to_oihw(block_p[convs[-1]]["kernel"]))
-            put_frozen(prefix + "downsample.1", block_s[fbns[-1]])
+            put_frozen(prefix + "downsample.1", block_s.get(fbns[-1]))
 
     k = np.asarray(params["input_proj"]["kernel"])              # (16·C, hidden)
     put("input_proj.weight", linear_on_flattened_conv(k, (k.shape[0] // 16, 4, 4))[:, :, None])
@@ -426,18 +449,6 @@ def load_checkpoint(filename: str, map_location: torch.device | str = "cpu") -> 
     return flax_msgpack.read_file(filename)
 
 
-def load_resume(filename: str, map_location: torch.device | str = "cpu") -> dict:
-    """A driver's own ``--resume`` payload. A JAX package checkpoint raises:
-    its optimizer state is optax's, and carrying it into a torch optimizer
-    is not ported yet (ROADMAP A5)."""
-    if not is_torch_file(filename):
-        raise NotImplementedError(
-            f"'{filename}' is a JAX package (flax msgpack) checkpoint; resuming from "
-            "one needs its optax optimizer state in torch form, which is not ported "
-            "yet (ROADMAP A5)")
-    return load_checkpoint(filename, map_location)
-
-
 def simclr_state_dict(payload: dict) -> "OrderedDict[str, torch.Tensor]":
     """The port-layout SimCLR ``state_dict`` of a loaded checkpoint: a
     torch payload's ``state_dict`` (or the payload itself), or a JAX
@@ -448,3 +459,118 @@ def simclr_state_dict(payload: dict) -> "OrderedDict[str, torch.Tensor]":
     if isinstance(sd, dict) and "params" in sd and "batch_stats" in sd:
         return from_jax_variables(sd["params"], sd["batch_stats"])
     return sd
+
+
+# ---------------------------------------------------------------------------
+# Resuming a driver from the JAX package's checkpoint of it
+
+
+def require_keys(payload, keys, path: str, what: str) -> None:
+    """Refuse a payload that lacks a key the JAX driver reads, naming it."""
+    missing = [k for k in keys if not isinstance(payload, dict) or k not in payload]
+    if missing:
+        raise ValueError(f"'{path}' is not a JAX package {what} checkpoint: it has no "
+                         + ", ".join(repr(k) for k in missing))
+
+
+def load_converted(module: torch.nn.Module, convert, path: str, what: str) -> None:
+    """``module.load_state_dict(convert())``, strict; a tree that is not
+    this model's (a missing slot, another shape) raises ``ValueError``, as
+    the JAX package's ``restore_like`` refuses it."""
+    try:
+        module.load_state_dict(convert())
+    except (KeyError, TypeError, IndexError, RuntimeError) as err:
+        raise ValueError(f"'{path}' does not hold this model's {what} variables: "
+                         f"{type(err).__name__}: {err}") from err
+
+
+def _load_optimizer(optimizer, model, opt_state, kind, to_port, path, clipped=False):
+    try:
+        return load_optax_state(optimizer, model, opt_state, kind, to_port, clipped)
+    except (KeyError, TypeError, IndexError, ValueError) as err:
+        raise ValueError(f"'{path}': its optax state does not match this optimizer: "
+                         f"{err}") from err
+
+
+SIMCLR_KEYS = ("epoch", "step", "state_dict", "best_prec1", "optimizer", "loss_history",
+               "top1_acc_history", "top5_acc_history", "total_time")
+
+
+def resume_jax_simclr(payload: dict, model: torch.nn.Module, optimizer, kind: str,
+                      want_fused: bool, path: str) -> int | None:
+    """Load a JAX SimCLR payload into ``model`` and ``optimizer`` (built by
+    ``get_optimizer(kind)``), by the JAX driver's rule
+    (``contrastive_learning.py:184-220``): the optax state carries when the
+    file's Bottleneck layout (``is_fused_layout``) is the one the JAX driver
+    builds from the same ``--arch``/``--stat-fusion`` (``want_fused``);
+    otherwise only the weights convert and the optimizer starts fresh.
+    Returns the optimizer's schedule count, or None when it starts fresh
+    (the caller keeps ``step`` and restarts the schedule at 0)."""
+    require_keys(payload, SIMCLR_KEYS, path, "SimCLR")
+    require_keys(payload["state_dict"], ("params", "batch_stats"), path, "SimCLR")
+    params = payload["state_dict"]["params"]
+    load_converted(model, lambda: from_jax_variables(params, payload["state_dict"][
+        "batch_stats"]), path, "SimCLR")
+    if is_fused_layout(params) != want_fused:
+        return None
+    return _load_optimizer(optimizer, model, payload["optimizer"], kind,
+                           lambda tree: from_jax_variables(tree, None), path)
+
+
+def resume_jax_probe(payload: dict, probe: torch.nn.Module, optimizer, kind: str,
+                     num_fixations: int, path: str) -> int | None:
+    """Load a JAX linear-probe payload (``state_dict`` = the probe's params)
+    and its optax state (``representation_evaluation.py:159-169``).
+    Returns the schedule count."""
+    require_keys(payload, ("epoch", "state_dict", "best_prec1", "optimizer"), path, "probe")
+    load_converted(probe, lambda: from_jax_probe_variables(payload["state_dict"],
+                                                            num_fixations), path, "probe")
+    return _load_optimizer(optimizer, probe, payload["optimizer"], kind,
+                           lambda tree: from_jax_probe_variables(tree, num_fixations), path)
+
+
+def fill_masked(tree, like):
+    """``tree`` with every empty ``{}`` leaf where ``like`` has an array
+    replaced by zeros of that shape: ``optax.masked`` writes a group's
+    moments as the whole parameter tree with the other groups' leaves
+    empty."""
+    if isinstance(like, dict):
+        return {k: fill_masked(tree.get(k, {}), v) for k, v in like.items()}
+    if isinstance(tree, dict) and not tree:
+        return np.zeros(np.shape(like), np.float32)
+    return tree
+
+
+def resume_jax_detr(payload: dict, model: torch.nn.Module, optimizer, clipped: bool,
+                    path: str) -> int | None:
+    """Load a JAX DETR payload (``{params, batch_stats}``, FrozenBatchNorm
+    backbone) and the optax state of ``make_detr_optimizer``'s chain
+    (``detr_image_classification.py:226-236``): each AdamW group's moments
+    and count, the frozen group and the clip holding none. ``clipped`` is
+    whether the chain starts with the clip (``--clip_max_norm > 0``).
+    Returns the groups' schedule count."""
+    require_keys(payload, ("epoch", "state_dict", "best_prec1", "optimizer"), path, "DETR")
+    require_keys(payload["state_dict"], ("params", "batch_stats"), path, "DETR")
+    params = payload["state_dict"]["params"]
+    load_converted(model, lambda: from_jax_detr_variables(params, payload["state_dict"][
+        "batch_stats"]), path, "DETR")
+    return _load_optimizer(optimizer, model, payload["optimizer"], "detr",
+                           lambda tree: from_jax_detr_variables(fill_masked(tree, params),
+                                                                None), path, clipped)
+
+
+def jax_dqn_state_dicts(payload: dict, path: str):
+    """The port DQN ``state_dict``s of the policy and the target of a JAX
+    RLS DQN payload, and its ``step`` (``detr_image_classification_rls.py:
+    157-171``). The file holds no optimizer state: RMSprop starts fresh, as
+    the JAX driver's does."""
+    keys = ("policy_state_dict", "policy_batch_stats", "target_state_dict",
+            "target_batch_stats")
+    require_keys(payload, keys, path, "DQN")
+    try:
+        policy = from_jax_dqn_variables(payload[keys[0]], payload[keys[1]])
+        target = from_jax_dqn_variables(payload[keys[2]], payload[keys[3]])
+    except (KeyError, TypeError, IndexError) as err:
+        raise ValueError(f"'{path}' does not hold DQN variables: "
+                         f"{type(err).__name__}: {err}") from err
+    return policy, target, int(payload.get("step", 0))

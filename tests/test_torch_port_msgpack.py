@@ -270,8 +270,12 @@ def test_rls_and_probe_drivers_start_from_a_jax_simclr_msgpack(simclr_payload_fi
 
 @pytest.mark.parametrize("which", ["simclr", "probe", "detr"])
 def test_resume_from_a_jax_msgpack_names_the_roadmap_item(simclr_payload_file, which, tmp_path):
-    """Resuming a driver of the port from a JAX checkpoint needs its optax
-    state in torch form: refused, naming ROADMAP A5, not a KeyError."""
+    """The fixture's optimizer is a constant-rate ``optax.adam(1e-3)``
+    state, not the SimCLR driver's scheduled chain: the JAX package's
+    ``restore_like`` refuses such a file (leaf-count mismatch), and so does
+    the port's SimCLR resume, with a ``ValueError`` naming the file, not a
+    KeyError. The probe and DETR drivers, handed this SimCLR payload,
+    refuse it the same way (its variables are not theirs)."""
     path, _ = simclr_payload_file
     common = ["--dataset", "synthetic", "-b", "4", "--canvas-size", "64", "-f", "2", "-t",
               "--num-examples", "8", "--device", "cpu", "--checkpoint-dir", str(tmp_path),
@@ -283,7 +287,7 @@ def test_resume_from_a_jax_msgpack_names_the_roadmap_item(simclr_payload_file, w
                "--backbone", "ResNet10", "--num-classes", "10", "--hidden_dim", "32",
                "--nheads", "2", "--enc_layers", "1", "--dec_layers", "1",
                "--dim_feedforward", "64", "--backbone-norm", "group"])}[which]
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    with pytest.raises(ValueError, match=f"'{path}'.*(optax state|variables)"):
         run()
 
 

@@ -364,10 +364,16 @@ def test_apply_retina_draws_from_generator():
 
 
 def test_unported_retina_modes_raise():
-    cfg = tr.RetinaConfig(canvas_size=64, mode="fused")
-    p = tr.neutral_params(B, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.apply_retina(_t(_images(0, 64)), p, cfg, False)
+    """The ``fused`` and ``canvas`` modes are ported
+    (``test_torch_port_retina_modes.py``); ``apply_retina_views`` refuses
+    them with the JAX package's ``ValueError``, as its JAX twin does."""
+    for mode in ("fused", "canvas"):
+        cfg = tr.RetinaConfig(canvas_size=64, mode=mode)
+        pyr = tr.build_pyramid(_t(_images(0, 64)), tr.RetinaConfig(canvas_size=64))
+        with pytest.raises(ValueError, match="requires the matmul retina"):
+            tr.apply_retina_views(pyr, tr.neutral_params(B, 64), cfg, False)
+        with pytest.raises(ValueError, match="requires the matmul retina"):
+            jr.apply_retina_views(None, None, None, _jax_cfg("canvas64", mode=mode), False)
 
 
 # ---------------------------------------------------------------------------

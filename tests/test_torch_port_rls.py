@@ -655,12 +655,13 @@ def test_driver_chain_trains_checkpoints_and_resumes_on_cpu(simclr_checkpoint, t
 
 @pytest.mark.parametrize("flag", [["--dqn-resume", "jax.msgpack"]])
 def test_driver_refuses_unported_flags(flag, tmp_path):
-    """``--multislice`` is ported (``test_torch_port_distributed_drivers.py``);
-    a resume from a JAX checkpoint is not (ROADMAP A5): any file that is not
-    a torch zip is read as one."""
+    """``--multislice`` is ported (``test_torch_port_distributed_drivers.py``),
+    and so is a resume from a JAX checkpoint (``test_torch_port_resume.py``):
+    any file that is not a torch zip is read as one, and one that lacks a
+    key the JAX driver reads is refused, naming the key."""
     flag = [str(tmp_path / f) if f.endswith(".msgpack") else f for f in flag]
-    (tmp_path / "jax.msgpack").write_bytes(b"\x82\xa5epoch\x01")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    (tmp_path / "jax.msgpack").write_bytes(b"\x81\xa5epoch\x01")   # {"epoch": 1}
+    with pytest.raises(ValueError, match="no 'policy_state_dict'"):
         driver.main(["x"] + RLS_ARGS + flag)
 
 

@@ -113,6 +113,28 @@ result line):
    b=128, canvas 640 (|d| <= 1e-2 + 1e-4|cpu| but for at most 1e-4 of
    the elements); the ms of one view of each; 3 SimCLR train steps with
    each mode at the phase-3 width: median step, peak memory, B1 never.
+3k. The last modules. (a) Dropout: the DETR driver at phase 3d's width
+   from the phase-3 checkpoint with ``--dropout 0.1``: every train-mode
+   attention keep mask one ``(Sq, Sk)`` pattern for all rows and heads, the
+   keep rate within 4σ of 0.9; two runs at ``--seed 15`` with bit-identical
+   first-step losses (cuDNN deterministic; the later steps' largest
+   difference printed) and ``--seed 16`` with another; the elements the
+   DETR and caption steps draw, their device ms alone and each step (host
+   median and one traced step's device busy ms) with dropout 0.1 beside 0. The DETR, RLS and caption drivers of phases 3d-3f
+   run with dropout at their defaults (0.1) and keep their B1 counts.
+   (b) ``AsyncCheckpointer``: the SimCLR driver at the phase-3 width for 2
+   epochs of 2 steps, the training thread's stall at each epoch-end save
+   beside an inline save of the same payload; save, a train step, wait():
+   the file holds the weights and Adam moments of the save. (c)
+   ``utils/profiling``: a SimCLR step traced by ``trace``, its device busy
+   from ``device_leaf_ops`` within 1% of the same trace's JSON file, and
+   ``tools/profile_torch_step.trace`` on the next step beside it;
+   ``StepTimer`` and ``device_memory_stats``. (d)
+   ``legacy_resnet18`` on ``(1, 20, 30, 15)`` and ``resnet1d_101`` on
+   ``(1, 5008, 1)`` against their CPU forwards (1e-4), a ``legacy_resnet50``
+   train step at b=128 on 30x30x15, timed. (e) The four example twins, B1
+   launched 5 times by the contrastive demo and 3 by the captioner demo.
+   (f) ``--unroll-fixations 5`` against 0: the same losses over 2 steps.
 4. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX. It exits non-zero without CUDA, and when the
@@ -1069,8 +1091,9 @@ def run_detr_path(torch, counters, simclr_ck, workdir, device_name):
     print(f"DETR forward: pred_logits {tuple(out['pred_logits'].shape)}, aux_logits "
           f"{tuple(out['aux_logits'].shape)}, finite")
     step = detr_train.make_detr_train_step(SetCriterion(10, 1000), cfg, PROBE_FIXATIONS, 0.1)
-    ms = median_step_ms(torch, lambda: step(state, images, targets, gen), "DETR", device_name,
-                        PROBE_FIXATIONS, peak, steps=9)
+    drop = torch.Generator(device=dev).manual_seed(11)
+    ms = median_step_ms(torch, lambda: step(state, images, targets, gen, dropout_generator=drop),
+                        "DETR", device_name, PROBE_FIXATIONS, peak, steps=9)
     return launches, ms
 
 
@@ -1210,8 +1233,10 @@ def run_rls_path(torch, counters, simclr_ck, workdir, device_name):
     memory = ReplayMemory(10_000, (30, 30, 12), seed=15, device=dev)
     policy = pstate.model
 
+    drop = torch.Generator(device=dev).manual_seed(12)
+
     def train_step():
-        draws = rls_train.draw_rollout(gen, host_gen, BATCH, f)._replace(coins=(1.0,) * f)
+        draws = rls_train.draw_rollout(gen, host_gen, BATCH, f, drop)._replace(coins=(1.0,) * f)
         m, ro, reward = step(state, policy, images, labels, 1, draws)
         rls_driver.push_rollout(memory, ro, draws.num_fixs, reward, False)
         if not bool(torch.isfinite(m["loss_ce"])):
@@ -1270,12 +1295,12 @@ def run_caption_path(torch, counters, simclr_ck, workdir, device_name):
     def spy(*args, **kwargs):
         step = make(*args, **kwargs)
 
-        def first(state, encoder, *rest):
+        def first(state, encoder, *rest, **kw):
             if not seen:
                 seen.update(towers={k: v.clone() for k, v in state.model.state_dict().items()},
                             encoder=encoder, step=state.step, opt=len(state.optimizer.state),
                             frozen={k: v.clone() for k, v in encoder.state_dict().items()})
-            return step(state, encoder, *rest)
+            return step(state, encoder, *rest, **kw)
         return first
 
     def run(extra, label):
@@ -1351,8 +1376,11 @@ def run_caption_path(torch, counters, simclr_ck, workdir, device_name):
     labels = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
     tokens = cap_driver.caption_tokens(labels, cfg.vocab_size, cfg.max_len)
 
+    drop = torch.Generator(device=dev).manual_seed(13)
+
     def train_step():
-        if not math.isfinite(float(step(state, encoder, images, tokens, gen)["loss"])):
+        m = step(state, encoder, images, tokens, gen, dropout_generator=drop)
+        if not math.isfinite(float(m["loss"])):
             fail("non-finite caption loss")
 
     ms = median_step_ms(torch, train_step, "caption", device_name, f, steps=9,
@@ -2455,6 +2483,486 @@ def run_retina_modes_path(torch, counters, device_name) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3k: dropout drawn as the JAX package draws it, the async checkpointer,
+# the profiling module, the legacy and 1-D ResNets, the example twins and
+# --unroll-fixations, on the card
+
+
+def _detr_argv(simclr_ck: str, ckdir: str, seed: int) -> list[str]:
+    return [simclr_ck, "--dataset", "synthetic", "--backbone", ARCH, "-b", str(BATCH),
+            "-f", str(PROBE_FIXATIONS), "--canvas-size", str(CANVAS), "--epochs", "1", "-t",
+            "--num-examples", str(EXAMPLES), "--checkpoint-dir", ckdir, "-p", "1",
+            "--dropout", "0.1", "--seed", str(seed)]
+
+
+def _set_dropout(model, rate: float) -> None:
+    """Every dropout rate of a transformer model (attention and activations)."""
+    from multimodal_active_ai_tpu_torch.models import transformer
+    for m in model.modules():
+        if isinstance(m, transformer.MultiheadAttention):
+            m.dropout = rate
+        elif isinstance(m, transformer._FeedForward):
+            m.rate = rate
+
+
+def _draw_ms(torch, shapes, dev) -> float:
+    """Device ms of one step's dropout draws alone (the keep masks of
+    ``shapes``), the mean of 5 replays timed with CUDA events."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def replay():
+        for shape in shapes:
+            torch.rand(shape, generator=gen, device=dev).lt_(0.9)
+
+    replay()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / 5
+
+
+def _step_and_busy(torch, step, label, device_name, steps, what=None) -> tuple[float, float]:
+    """The median host ms of ``step`` (``median_step_ms``), then one traced
+    step's device busy ms (``utils/profiling``), printed with its launches."""
+    from multimodal_active_ai_tpu_torch.utils import profiling
+    ms = median_step_ms(torch, step, label, device_name, PROBE_FIXATIONS, steps=steps, what=what)
+    with profiling.trace() as prof:
+        step()
+        torch.cuda.synchronize()
+    ops = profiling.device_leaf_ops(prof)
+    busy = sum(us for _, us in ops) / 1e3
+    print(f"traced step {label}: device busy {busy:.2f} ms in {len(ops)} kernels, memsets and "
+          f"copies [{device_name}]")
+    return ms, busy
+
+
+def run_dropout_checks(torch, simclr_ck, workdir, device_name) -> dict:
+    """Phase 3k(a): the DETR driver at phase 3d's width from the phase-3
+    checkpoint with ``--dropout 0.1``. Its train-mode attention calls: every
+    keep mask one ``(Sq, Sk)`` pattern for all 128 rows and 8 heads (seen
+    where the eval-mode weight is positive), the keep rate within 4σ of 0.9.
+    Two runs at ``--seed 15`` (cuDNN deterministic): the first step's loss
+    bit-identical (forward only), the later steps' largest difference
+    printed; ``--seed 16``: another first-step loss. Then what the draws
+    cost: the elements drawn a DETR and a caption step, their device ms
+    alone, and each step's median and device busy ms with dropout 0.1
+    beside 0."""
+    from multimodal_active_ai_tpu_torch import coco_captions_probe as cap_driver
+    from multimodal_active_ai_tpu_torch import detr_image_classification as detr_driver
+    from multimodal_active_ai_tpu_torch.models import transformer
+    from multimodal_active_ai_tpu_torch.models.resnet import encoder_feature_dim
+    from multimodal_active_ai_tpu_torch.models.simclr import SimCLRModule
+    from multimodal_active_ai_tpu_torch.models.text import TextEncoder
+    from multimodal_active_ai_tpu_torch.objectives.set_criterion import SetCriterion
+    from multimodal_active_ai_tpu_torch.ops import retina
+    from multimodal_active_ai_tpu_torch.representation_evaluation import load_pretrained_encoder
+    from multimodal_active_ai_tpu_torch.train import caption_probe, detr_train, optimizers
+    from multimodal_active_ai_tpu_torch.train.simclr_train import TrainState
+
+    MHA = transformer.MultiheadAttention
+    weights_of, draw, make = MHA.attention_weights, transformer._draw, detr_train.make_detr_train_step
+    attn = {"calls": 0, "mixed": 0, "kept": 0, "seen": 0}
+    shapes: list = []
+
+    def record_weights(self, q, k, key_padding_mask=None, attn_mask=None, generator=None):
+        w = weights_of(self, q, k, key_padding_mask, attn_mask, generator)
+        if self.training and self.dropout:
+            self.training = False
+            try:
+                soft = weights_of(self, q, k, key_padding_mask, attn_mask)
+            finally:
+                self.training = True
+            valid = soft > 0
+            dropped = (w == 0) & valid
+            any_drop = dropped.flatten(0, 1).any(0)
+            any_keep = (valid & ~dropped).flatten(0, 1).any(0)
+            attn["calls"] += 1
+            attn["mixed"] += int((any_drop & any_keep).sum())
+            attn["kept"] += int((any_keep & ~any_drop).sum())
+            attn["seen"] += int(valid.flatten(0, 1).any(0).sum())
+        return w
+
+    def record_draw(shape, rate, generator, device):
+        shapes.append(tuple(shape))
+        return draw(shape, rate, generator, device)
+
+    def run(seed: int, instrumented: bool):
+        losses: list = []
+
+        def spy(*a, **k):
+            step = make(*a, **k)
+
+            def first(*args, **kw):
+                m = step(*args, **kw)
+                losses.append(float(m["loss_ce"]))
+                return m
+            return first
+
+        detr_train.make_detr_train_step = spy
+        if instrumented:
+            MHA.attention_weights, transformer._draw = record_weights, record_draw
+        try:
+            state = detr_driver.main(_detr_argv(simclr_ck, os.path.join(
+                workdir, f"dropout_{seed}_{instrumented}"), seed))
+        finally:
+            detr_train.make_detr_train_step = make
+            MHA.attention_weights, transformer._draw = weights_of, draw
+        return state, losses
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, first = run(15, True)
+        state, again = run(15, False)
+        _, other = run(16, False)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    n = attn["seen"]
+    rate = attn["kept"] / max(n, 1)
+    sigma = math.sqrt(0.9 * 0.1 / max(n, 1))
+    print(f"dropout on the card (DETR {ARCH} backbone, 6 + 6 layers, hidden 256, FFN 2048, "
+          f"b={BATCH}, F={PROBE_FIXATIONS}, --dropout 0.1): {attn['calls']} train-mode "
+          f"attention calls; positions whose keep mask differs across rows or heads: "
+          f"{attn['mixed']} of {n}; keep rate {rate:.4f} (0.9 ± 4σ = {4 * sigma:.4f})")
+    if not attn["calls"] or attn["mixed"] or abs(rate - 0.9) > 4 * sigma:
+        fail(f"attention dropout is not one (1, 1, Sq, Sk) mask at keep 0.9: {attn}")
+    later = max((abs(a - b) for a, b in zip(first[1:], again[1:])), default=0.0)
+    print(f"dropout is a function of --seed: first-step loss seed 15 {first[0]!r} and "
+          f"{again[0]!r} (bit-identical {first[0] == again[0]}), seed 16 {other[0]!r}; later "
+          f"steps' largest difference at seed 15 {later:.3e} over {len(first) - 1} steps")
+    if first[0] != again[0] or other[0] == first[0] or len(first) != TRAIN_STEPS:
+        fail(f"DETR first-step losses {first}, {again}, {other}")
+
+    # what the draws cost: the DETR step's and the caption step's
+    dev = torch.device("cuda")
+    steps_drawn = shapes[:len(shapes) // TRAIN_STEPS]
+    detr_elems = sum(math.prod(s) for s in steps_drawn)
+    gen = torch.Generator(device=dev).manual_seed(30)
+    drop = torch.Generator(device=dev).manual_seed(31)
+    images = torch.randint(0, 256, (BATCH, CANVAS, CANVAS, 3), generator=gen,
+                           dtype=torch.uint8, device=dev)
+    labels = torch.randint(0, 1000, (BATCH,), generator=gen, device=dev)
+    cfg = retina.RetinaConfig(canvas_size=CANVAS)
+    step = detr_train.make_detr_train_step(SetCriterion(10, 1000), cfg, PROBE_FIXATIONS, 0.1)
+    out = {"detr_draw_ms": _draw_ms(torch, steps_drawn, dev), "detr_elems": detr_elems}
+    for rate in (0.1, 0.0):
+        _set_dropout(state.model, rate)
+        out[f"detr_{rate}"] = _step_and_busy(
+            torch, lambda: step(state, images, labels, gen, dropout_generator=drop),
+            f"DETR, dropout {rate}", device_name, steps=9)
+    _set_dropout(state.model, 0.1)
+    del state
+
+    encoder = SimCLRModule(ARCH).to(dev).to(memory_format=torch.channels_last)
+    load_pretrained_encoder(encoder, simclr_ck, dev)
+    seeded = torch.Generator().manual_seed(16)
+    towers = caption_probe.CaptionTowers(encoder_feature_dim(ARCH) * 16 * PROBE_FIXATIONS,
+                                         TextEncoder(generator=seeded), generator=seeded).to(dev)
+    cstate = TrainState(towers, optimizers.get_optimizer("adam", towers.parameters()),
+                        lambda _: 1e-4)
+    tokens = cap_driver.caption_tokens(labels, 32768, 32)
+    cstep = caption_probe.make_caption_probe_train_step(cfg, PROBE_FIXATIONS, 0.05)
+    shapes.clear()
+    transformer._draw = record_draw
+    try:
+        cstep(cstate, encoder, images, tokens, gen, dropout_generator=drop)
+    finally:
+        transformer._draw = draw
+    out["caption_draw_ms"] = _draw_ms(torch, list(shapes), dev)
+    out["caption_elems"] = sum(math.prod(s) for s in shapes)
+    for rate in (0.1, 0.0):
+        _set_dropout(towers, rate)
+        out[f"caption_{rate}"] = _step_and_busy(
+            torch, lambda: cstep(cstate, encoder, images, tokens, gen, dropout_generator=drop),
+            f"caption, text dropout {rate}", device_name, steps=9,
+            what=f"{ARCH} float32 encoder, b={BATCH}, F={PROBE_FIXATIONS}, text tower defaults")
+    print(f"dropout draws a train step: DETR {detr_elems:,} elements in {len(steps_drawn)} "
+          f"draws, {out['detr_draw_ms']:.3f} ms for the draws replayed alone; the step "
+          f"{out['detr_0.1'][0]:.1f} ms (device busy {out['detr_0.1'][1]:.2f} ms) with dropout "
+          f"0.1 vs {out['detr_0.0'][0]:.1f} ms ({out['detr_0.0'][1]:.2f} ms) at 0; caption "
+          f"{out['caption_elems']:,} elements, {out['caption_draw_ms']:.3f} ms alone, the step "
+          f"{out['caption_0.1'][0]:.1f} ms ({out['caption_0.1'][1]:.2f} ms) vs "
+          f"{out['caption_0.0'][0]:.1f} ms ({out['caption_0.0'][1]:.2f} ms) [{device_name}]")
+    del encoder, towers, cstate
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_async_save_checks(torch, driver, ckpt_mod, workdir, device_name):
+    """Phase 3k(b): the SimCLR driver at the phase-3 width for 2 epochs of 2
+    train steps (and 1 eval step each): the caller's stall in each
+    ``AsyncCheckpointer.save`` beside an inline ``save_checkpoint`` of the
+    same payload; the last file equal to the returned state. Then save,
+    take one more train step, ``wait()``: the file holds the weights and
+    Adam moments of the save, not of the step. Returns the state."""
+    from multimodal_active_ai_tpu_torch.ops import retina
+    from multimodal_active_ai_tpu_torch.train import simclr_train
+
+    ckdir = os.path.join(workdir, "async")
+    argv = ["--dataset", "synthetic", "--arch", ARCH, "-b", str(BATCH), "-f", str(FIXATIONS),
+            "--canvas-size", str(CANVAS), "--epochs", "2", "--num-examples", str(2 * BATCH),
+            "--checkpoint-dir", ckdir, "-p", "1"]
+    cls = ckpt_mod.AsyncCheckpointer
+    save = cls.save
+    stalls: list = []
+
+    def timed_save(self, *a, **k):
+        t0 = time.perf_counter()
+        save(self, *a, **k)
+        stalls.append((time.perf_counter() - t0) * 1e3)
+
+    cls.save = timed_save
+    try:
+        t0 = time.perf_counter()
+        state = driver.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        cls.save = save
+    ck = os.path.join(ckdir, "checkpoint.pth.tar")
+    payload = ckpt_mod.load_checkpoint(ck)
+    sd = state.model.state_dict()
+    if payload["epoch"] != 2 or payload["step"] != 4 * FIXATIONS or not all(
+            torch.equal(v, sd[k].cpu()) for k, v in payload["state_dict"].items()):
+        fail(f"the async saver's last file is not the final state (epoch {payload['epoch']})")
+    inline = os.path.join(ckdir, "inline.pth.tar")
+    full = {"state_dict": sd, "optimizer": state.optimizer.state_dict()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt_mod.save_checkpoint(full, False, filename=inline)
+    inline_ms = (time.perf_counter() - t0) * 1e3
+    size_mib = os.path.getsize(inline) / 2**20
+    print(f"async checkpointer (SimCLR driver, 2 epochs x 2 steps, {wall:.1f} s): the epoch-end "
+          f"stall on the training thread {[round(t, 1) for t in stalls]} ms, against "
+          f"{inline_ms:.1f} ms for the same {size_mib:.1f} MiB saved inline [{device_name}]")
+    if len(stalls) != 2:
+        fail(f"{len(stalls)} async saves, expected 2")
+
+    step = simclr_train.make_train_step(retina.RetinaConfig(canvas_size=CANVAS), FIXATIONS, 0.05)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(32)
+    images = torch.randint(0, 256, (BATCH, CANVAS, CANVAS, 3), generator=gen,
+                           dtype=torch.uint8, device=dev)
+    before = {k: v.clone() for k, v in sd.items()}
+    moments = {i: {k: v.clone() for k, v in st.items()}
+               for i, st in state.optimizer.state_dict()["state"].items()}
+    saver = cls()
+    snap = os.path.join(ckdir, "snapshot.pth.tar")
+    t0 = time.perf_counter()
+    saver.save(full, False, filename=snap)
+    stall = (time.perf_counter() - t0) * 1e3
+    step(state, images, gen)
+    saver.wait()
+    saved = ckpt_mod.load_checkpoint(snap)
+    same = all(torch.equal(saved["state_dict"][k], v.cpu()) for k, v in before.items()) and all(
+        torch.equal(saved["optimizer"]["state"][i][k], v.cpu())
+        for i, st in moments.items() for k, v in st.items())
+    moved = sum(not torch.equal(saved["state_dict"][k], v.cpu())
+                for k, v in state.model.state_dict().items())
+    print(f"async snapshot: save {stall:.1f} ms on the caller's thread, then a train step, then "
+          f"wait(): the file holds the saved weights and Adam moments bit for bit {same}; "
+          f"{moved} tensors differ from the weights after the step [{device_name}]")
+    if not same or not moved:
+        fail("the async save did not keep the snapshot of the save")
+    return state, images, gen
+
+
+def run_profiling_checks(torch, state, images, gen, workdir, device_name) -> None:
+    """Phase 3k(c): one phase-3-width SimCLR step traced by
+    ``utils/profiling.trace`` (its Chrome trace written), its device busy ms
+    from ``device_leaf_ops`` within 1% of the same trace's device events
+    (kernels, memcpys, memsets) read back from the JSON file, a parse of
+    its own; ``tools/profile_torch_step.trace`` on the next step, printed
+    beside (two executions of one step differ by about 1%); then
+    ``StepTimer`` over 3 steps and ``device_memory_stats``."""
+    import importlib.util
+
+    from multimodal_active_ai_tpu_torch.ops import retina
+    from multimodal_active_ai_tpu_torch.train import simclr_train
+    from multimodal_active_ai_tpu_torch.utils import profiling
+
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch_step", os.path.join(ROOT, "tools", "profile_torch_step.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    step = simclr_train.make_train_step(retina.RetinaConfig(canvas_size=CANVAS), FIXATIONS, 0.05)
+
+    def fn():
+        return step(state, images, gen)
+
+    fn()
+    torch.cuda.synchronize()
+    log_dir = os.path.join(workdir, "trace")
+    with profiling.trace(log_dir) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = profiling.device_leaf_ops(prof)
+    busy = sum(us for _, us in ops) / 1e3
+    with open(os.path.join(log_dir, "trace.json")) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"
+                  and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy_json = sum(float(e["dur"]) for e in events) / 1e3
+    ops_tool, memory_ops, busy_tool, _ = tool.trace(fn)
+    apart = 100 * abs(busy - busy_json) / max(busy_json, 1e-9)
+    print(f"profiling: utils/profiling.trace + device_leaf_ops {busy:.1f} ms device busy in "
+          f"{len(ops)} kernels, memsets and copies; the same trace's JSON {busy_json:.1f} ms in "
+          f"{len(events)} ({apart:.2f}% apart, bound 1%); tools/profile_torch_step.trace on the "
+          f"next step {busy_tool:.1f} ms in {len(ops_tool)} ({memory_ops} memsets/copies), "
+          f"{100 * (busy_tool - busy) / max(busy, 1e-9):+.2f}% [{device_name}]")
+    if not ops or apart > 1.0:
+        fail("device_leaf_ops disagrees with the trace it read")
+    timer = profiling.StepTimer()
+    for _ in range(3):
+        timer.start()
+        timer.stop(fn())
+    mem = {d: {k: f"{v / 2**30:.2f} GiB" for k, v in s.items()}
+           for d, s in profiling.device_memory_stats().items()}
+    print(f"StepTimer: {timer.summary(BATCH)} (SimCLR {ARCH}, b={BATCH}, F={FIXATIONS}); "
+          f"device_memory_stats {mem} [{device_name}]")
+    if set(mem) != {f"cuda:{i}" for i in range(torch.cuda.device_count())}:
+        fail(f"device_memory_stats {mem}")
+
+
+def run_model_checks(torch, device_name) -> float:
+    """Phase 3k(d): ``legacy_resnet18`` on ``(1, 20, 30, 15)`` and
+    ``resnet1d_101`` on ``(1, 5008, 1)``, eval mode, on the card against the
+    CPU forward of the same weights (float32, TF32 off: 1e-4 of the largest
+    value); then a ``legacy_resnet50`` train step (bf16 autocast, Adam) at
+    b=128 on 30x30x15 glimpses, timed. Returns its median ms."""
+    import copy
+
+    from multimodal_active_ai_tpu_torch.models.resnet1d import resnet1d_101
+    from multimodal_active_ai_tpu_torch.models.resnet_legacy import (
+        legacy_resnet18, legacy_resnet50)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(33)
+    for label, model, shape in (
+            ("legacy_resnet18", legacy_resnet18(norm_kind="bn", generator=gen), (1, 20, 30, 15)),
+            ("resnet1d_101", resnet1d_101(length=5008, generator=gen), (1, 5008, 1))):
+        x = torch.randn(shape, generator=gen)
+        with torch.no_grad():
+            cpu = model.eval()(x)
+            card = copy.deepcopy(model).to(dev).eval()(x.to(dev)).cpu()
+        rel = float((card - cpu).abs().max() / cpu.abs().max())
+        print(f"{label} {shape} -> {tuple(card.shape)} on the card, |card - cpu| {rel:.2e} of "
+              f"the largest value (bound 1e-4)")
+        if card.shape != cpu.shape or not rel <= 1e-4:
+            fail(f"{label} on the card differs from the CPU: {rel}")
+
+    model = legacy_resnet50(norm_kind="bn", generator=gen).to(dev)
+    model = model.to(memory_format=torch.channels_last).train()
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+    dgen = torch.Generator(device=dev).manual_seed(34)
+    x = torch.rand((BATCH, 30, 30, 15), generator=dgen, device=dev) * 255
+
+    def train_step():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            loss = model(x).float().square().mean()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        if not math.isfinite(float(loss.detach())):
+            fail("non-finite legacy ResNet-50 loss")
+
+    train_step()
+    torch.cuda.reset_peak_memory_stats()
+    ms = median_step_ms(torch, train_step, "legacy_resnet50", device_name, 1, steps=9,
+                        what=f"b={BATCH}, 30x30x15, bf16, Adam")
+    print(f"legacy_resnet50 train step peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{device_name}]")
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _all_finite(torch, value) -> bool:
+    if isinstance(value, (list, tuple)):
+        return all(_all_finite(torch, v) for v in value)
+    return bool(torch.isfinite(torch.as_tensor(value).float()).all())
+
+
+EXAMPLE_B1 = {"torch_contrastive_learning_demo": 5,      # 2 views + a step of 1 + F = 3
+              "torch_reinforced_transformer_demo": 3,    # one a fixation of the rollout
+              "torch_resnet_tests": 0, "torch_retina_visualization": 0}
+
+
+def run_example_checks(torch, counters, workdir, device_name) -> dict:
+    """Phase 3k(e): the four example twins on the card through their
+    ``main``: B1 launched by the contrastive and captioner demos as their
+    chains launch it, the other kernels never; outputs finite."""
+    import importlib.util
+
+    got = {}
+    for name, want in EXAMPLE_B1.items():
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "examples", f"{name}.py"))
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        argv = ["--device", "cuda"]
+        if name == "torch_retina_visualization":
+            argv += ["--out", os.path.join(workdir, "retina_pyramid.png")]
+        reset_counts(counters.values())
+        t0 = time.perf_counter()
+        out = module.main(argv)
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        finite = all(_all_finite(torch, v) for v in out.values())
+        print(f"example {name}: launches {launches} (B1 expected {want}); outputs finite "
+              f"{finite}; {time.perf_counter() - t0:.1f} s [{device_name}]")
+        if launches != {**{k: 0 for k in counters}, "glimpse_sample": want} or not finite:
+            fail(f"example {name}: launches {launches}, finite {finite}")
+        got[name] = launches["glimpse_sample"]
+    return got
+
+
+def run_unroll_check(torch, driver, workdir, device_name) -> None:
+    """Phase 3k(f): the SimCLR driver at the phase-3 width, 2 train steps,
+    with ``--unroll-fixations 5`` and with ``0`` (cuDNN deterministic): the
+    same per-fixation losses bit for bit."""
+    from multimodal_active_ai_tpu_torch.train import simclr_train
+
+    make = simclr_train.make_train_step
+    losses: dict = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for unroll in ("0", "5"):
+            got: list = []
+
+            def spy(*a, **k):
+                step = make(*a, **k)
+
+                def each(*args, **kw):
+                    out = step(*args, **kw)
+                    got.append(out.clone())
+                    return out
+                return each
+
+            simclr_train.make_train_step = spy
+            try:
+                driver.main(["--dataset", "synthetic", "--arch", ARCH, "-b", str(BATCH), "-f",
+                             str(FIXATIONS), "--canvas-size", str(CANVAS), "--epochs", "1", "-t",
+                             "--num-examples", str(2 * BATCH), "-p", "1", "--checkpoint-dir",
+                             os.path.join(workdir, f"unroll_{unroll}"),
+                             "--unroll-fixations", unroll])
+            finally:
+                simclr_train.make_train_step = make
+            losses[unroll] = torch.stack(got).cpu()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    same = torch.equal(losses["0"], losses["5"])
+    print(f"--unroll-fixations 5 vs 0 on the card: {losses['0'].numel()} per-fixation losses "
+          f"over {len(losses['0'])} steps bit-identical {same} [{device_name}]")
+    if not same or len(losses["0"]) != 2:
+        fail(f"--unroll-fixations changed the losses: {losses}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PACKAGE)):
         fail(f"{PACKAGE}/ is not beside chip_smoke.py; run it from the repository root")
@@ -2532,6 +3040,18 @@ def main() -> int:
         modes = run_retina_modes_path(torch, counters, device_name)
         print(f"phase 3j (canvas and fused retina on the card, their SimCLR steps): "
               f"{time.perf_counter() - t3j:.1f} s")
+        t3k = time.perf_counter()
+        drop = run_dropout_checks(torch, simclr_ck, workdir, device_name)
+        state, images, gen = run_async_save_checks(torch, driver, ckpt_mod, workdir, device_name)
+        run_profiling_checks(torch, state, images, gen, workdir, device_name)
+        del state, images, gen
+        gc.collect()
+        torch.cuda.empty_cache()
+        legacy_ms = run_model_checks(torch, device_name)
+        examples = run_example_checks(torch, counters, workdir, device_name)
+        run_unroll_check(torch, driver, workdir, device_name)
+        print(f"phase 3k (dropout, async saver, profiling, legacy and 1-D ResNets, examples, "
+              f"--unroll-fixations): {time.perf_counter() - t3k:.1f} s [{device_name}]")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     rows["conv1x1_stats"]["launches"] = fused["conv1x1_stats"]
@@ -2576,6 +3096,14 @@ def main() -> int:
           f"{modes['canvas'][0]:.1f} ms ({modes['canvas'][1]:.2f} GiB), matmul (phase 3) "
           f"{bn_ms:.1f} ms; a view: fused {modes['view_ms']['fused']:.2f} ms, canvas "
           f"{modes['view_ms']['canvas']:.2f} ms [{device_name}]")
+
+    print(f"last modules (phase 3k): glimpse_sample launches with dropout 0.1 in the DETR, RLS "
+          f"and caption driver runs {detr_launches}, {rls_launches}, {cap_launches} (expected 4, "
+          f"10, 17); device busy a step with dropout 0.1 vs 0: DETR {drop['detr_0.1'][1]:.2f} "
+          f"vs {drop['detr_0.0'][1]:.2f} ms, caption {drop['caption_0.1'][1]:.2f} vs "
+          f"{drop['caption_0.0'][1]:.2f} ms; legacy_resnet50 train step (b={BATCH}, 30x30x15, bf16) "
+          f"{legacy_ms:.1f} ms; example twins' glimpse_sample launches {examples} "
+          f"[{device_name}]")
 
     # phase 4: results
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -24,7 +24,8 @@ The checkpoint is ``caption_probe_checkpoint.pth.tar`` in
 ``--checkpoint-dir``: ``epoch``, ``state_dict`` (both towers), ``vocab_size``
 and, when the run has a vocabulary, ``vocab_words_u8``. ``--resume`` takes
 one of them or a JAX caption checkpoint (msgpack, which holds no optimizer
-state): it restores the towers' parameters and the vocabulary; Adam starts
+state): it restores the towers' parameters and, on caption files, the
+vocabulary (synthetic captions are hashed: no vocabulary); Adam starts
 fresh and the epochs restart at 0, as in the JAX driver. A checkpoint built
 for another vocabulary size raises ``ValueError``.
 
@@ -62,8 +63,9 @@ from time import time
 import torch
 
 from multimodal_active_ai_tpu_torch import parallel
-from multimodal_active_ai_tpu_torch.config import CaptionProbeConfig, check_ported, parse_into
-from multimodal_active_ai_tpu_torch.contrastive_learning import generator, print_loader_stats
+from multimodal_active_ai_tpu_torch.config import CaptionProbeConfig, parse_into
+from multimodal_active_ai_tpu_torch.contrastive_learning import (
+    DROPOUT_STREAM, generator, print_loader_stats)
 from multimodal_active_ai_tpu_torch.data.loader import HostLoader
 from multimodal_active_ai_tpu_torch.data.prefetch import device_batches
 from multimodal_active_ai_tpu_torch.data.readers import list_coco_images, list_image_folder
@@ -188,9 +190,8 @@ def restore_towers(towers: caption_probe.CaptionTowers, payload: dict, num_fixat
 
 def main(argv=None):
     """Returns the trained ``TrainState`` (``model`` the towers) and the
-    run's vocabulary (None unless the resumed checkpoint carries one)."""
+    run's vocabulary (None on synthetic data)."""
     cfg = parse_into(CaptionProbeConfig, argv, prog="COCO_Captions_Probe")
-    check_ported(cfg)
     device = parallel.initialize_distributed(cfg.device)
     try:
         return train(cfg, device)
@@ -223,27 +224,27 @@ def train(cfg, device: torch.device):
                             num_threads=cfg.workers, cache_dir=cfg.canvas_cache or None,
                             pin_memory=device.type == "cuda")
 
+    # a corpus vocabulary only where there are captions; synthetic captions
+    # are hashed, and a resumed checkpoint's vocabulary is not kept
+    # (coco_captions_probe.py:185-201 of the JAX package)
     payload, vocab = None, None
     text_vocab_size = cfg.vocab_size
     if cfg.resume and os.path.isfile(cfg.resume):
         payload = ckpt.load_checkpoint(cfg.resume)
     elif cfg.resume:
         print0(f"=> no checkpoint found at '{cfg.resume}'")
-    if payload is not None and "vocab_words_u8" in payload:
-        # the saved embedding is indexed by this word→id map: restore it
-        # rather than trust the captions on disk to rebuild it identically
-        # (synthetic captions are still hashed, as in the JAX driver)
-        vocab = Vocabulary.from_u8(payload["vocab_words_u8"], max_len=cfg.max_len)
-        print0(f"caption vocabulary: {vocab.size} entries, from the checkpoint")
-        if captions is not None:
-            rebuilt = Vocabulary.build(captions, max_size=cfg.vocab_size, max_len=cfg.max_len)
+    if captions is not None:
+        vocab = Vocabulary.build(captions, max_size=cfg.vocab_size, max_len=cfg.max_len)
+        if payload is not None and "vocab_words_u8" in payload:
+            # the saved embedding is indexed by its own word→id map: restore
+            # it rather than trust the captions on disk to rebuild it
+            rebuilt = vocab
+            vocab = Vocabulary.from_u8(payload["vocab_words_u8"], max_len=cfg.max_len)
+            print0(f"caption vocabulary: {vocab.size} entries, from the checkpoint")
             if rebuilt.words != vocab.words:
                 print0("WARNING: caption corpus changed since the checkpoint was written "
                        f"({rebuilt.size} vs {vocab.size} entries); using the checkpoint's "
                        "vocabulary")
-    elif captions is not None:
-        vocab = Vocabulary.build(captions, max_size=cfg.vocab_size, max_len=cfg.max_len)
-    if captions is not None:
         text_vocab_size = vocab.size
         print0(f"caption vocabulary: {vocab.size} entries (cap {cfg.vocab_size}) over "
                f"{len(captions)} captions")
@@ -278,10 +279,11 @@ def train(cfg, device: torch.device):
         meters = {k: AverageMeter() for k in METRICS}
         losses = AverageMeter()
         gen = generator(device, cfg.seed, 30_000 + epoch)
+        drop_gen = generator(device, cfg.seed, DROPOUT_STREAM + epoch)
         end = time()
         with closing(device_batches(with_tokens(reader, tokens_for), device)) as batches:
             for i, (images, tokens) in enumerate(islice(batches, train_steps)):
-                m = train_step(state, encoder, images, tokens, gen)
+                m = train_step(state, encoder, images, tokens, gen, dropout_generator=drop_gen)
                 if i % cfg.print_freq == 0:
                     losses.update(float(m["loss"]))
                     synchronize(device)

@@ -6,10 +6,10 @@ The port's own copy of ``multimodal_active_ai_tpu/config.py``
 of its ``coco_captions_probe.py``: the same flag names and defaults, the
 reference's underscore flags included (``--enc_layers``, ``--lr_backbone``,
 ``--clip_max_norm``), so a JAX command line runs here unchanged, plus
-``--device``. Flags whose feature has not been ported raise
-``NotImplementedError`` in the drivers (:func:`check_ported`), naming the
-ROADMAP item. The file readers' own flags (``-j``, ``--canvas-cache``) have
-no effect with ``--dataset synthetic``, as in the JAX drivers.
+``--device``. Every flag is ported; ``--unroll-fixations`` tunes only the
+JAX scan, so the eager fixation loop accepts and ignores it. The file
+readers' own flags (``-j``, ``--canvas-cache``) have no effect with
+``--dataset synthetic``, as in the JAX drivers.
 """
 
 from __future__ import annotations
@@ -79,9 +79,11 @@ class ContrastiveConfig:
                               help="decode-once canvas cache directory for "
                                    "the file readers")
     unroll_fixations: int = _flag("--unroll-fixations", default=0,
-                                  help="JAX scan-unroll knob; only 0 is "
-                                       "accepted, the eager loop has no "
-                                       "scan to unroll")
+                                  help="the JAX package's fixation-scan "
+                                       "unroll (0 auto, -1 full, n); it "
+                                       "changes how XLA traces the loop, not "
+                                       "what it computes, and the eager "
+                                       "loop here ignores it")
     device_prefetch: int = _flag("--device-prefetch", default=2,
                                  help="batches copied to the device ahead of "
                                       "the train step (0: each copied when "
@@ -259,15 +261,6 @@ class CaptionProbeConfig:
                               help="decode-once canvas cache directory")
     device: str = _flag("--device", default="cuda",
                         help="'cuda' (default; raises if absent) or 'cpu'")
-
-
-def check_ported(cfg) -> None:
-    """Refuse every flag value of a driver config whose feature is not
-    ported yet, naming the ROADMAP item."""
-    if getattr(cfg, "unroll_fixations", 0) != 0:
-        raise NotImplementedError(
-            "--unroll-fixations tunes the JAX scan; the eager fixation loop "
-            "has nothing to unroll (leave it at 0)")
 
 
 def add_args_from_dataclass(parser: argparse.ArgumentParser, cls) -> None:

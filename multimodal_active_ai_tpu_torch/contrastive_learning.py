@@ -65,7 +65,7 @@ import numpy as np
 import torch
 
 from multimodal_active_ai_tpu_torch import parallel
-from multimodal_active_ai_tpu_torch.config import ContrastiveConfig, check_ported, parse_into
+from multimodal_active_ai_tpu_torch.config import ContrastiveConfig, parse_into
 from multimodal_active_ai_tpu_torch.data.loader import HostLoader
 from multimodal_active_ai_tpu_torch.data.prefetch import device_batches
 from multimodal_active_ai_tpu_torch.data.readers import list_coco_images, list_image_folder
@@ -79,10 +79,17 @@ from multimodal_active_ai_tpu_torch.parallel import print0
 from multimodal_active_ai_tpu_torch.train import optimizers, schedule, simclr_train
 from multimodal_active_ai_tpu_torch.utils import checkpoint as ckpt
 from multimodal_active_ai_tpu_torch.utils.meters import AverageMeter, perf_line, speed_line
+from multimodal_active_ai_tpu_torch.utils.plotting import plot_training_stats
+
+
+# the dropout stream of an epoch's train loop is DROPOUT_STREAM + epoch in
+# the DETR, RLS and caption drivers (no driver draws another stream there)
+DROPOUT_STREAM = 60_000
 
 
 def generator(device: torch.device, seed: int, stream: int) -> torch.Generator:
-    """The driver's draws for one stream (an epoch's train or val loop)."""
+    """The driver's draws for one stream (an epoch's train or val loop, or
+    its dropout)."""
     return torch.Generator(device=device).manual_seed(seed * 100_003 + stream)
 
 
@@ -164,7 +171,6 @@ def main(argv=None):
     cfg = parse_into(ContrastiveConfig, argv, prog="Contrastive_Learning")
     if not cfg.data and cfg.dataset != "synthetic":
         raise Exception("error: No data set provided")
-    check_ported(cfg)
     device = parallel.initialize_distributed(cfg.device, cfg.multislice, cfg.verbose)
     try:
         return train(cfg, device)
@@ -250,8 +256,12 @@ def train(cfg, device: torch.device):
             print0(f"=> no checkpoint found at '{cfg.resume}'")
 
     if cfg.plot_training_history:
-        print0("training-history figure: not ported (ROADMAP: the rest); "
-               "printing the histories")
+        if parallel.is_main():
+            out = plot_training_stats(
+                loss_history, top1_acc_history, top5_acc_history,
+                out_path=os.path.join(cfg.checkpoint_dir, "training_history.png"))
+            if out:
+                print(f"training history figure written to {out}")
         print0("loss_history:", loss_history)
         print0("top1_acc_history:", top1_acc_history)
         print0("top5_acc_history:", top5_acc_history)
@@ -262,69 +272,76 @@ def train(cfg, device: torch.device):
                f"and {seconds} seconds")
         return state
 
-    epoch = start_epoch - 1
-    for epoch in range(start_epoch, cfg.epochs):
-        # ---- train (reference train(), Contrastive_Learning.py:577-740) ----
-        batch_time = AverageMeter()
-        losses = AverageMeter()
-        nbatches = len(train_reader)
-        gen = generator(device, cfg.seed, epoch)
-        end = time()
-        # the copy of batch i+1 overlaps step i; closing() stops the
-        # transfer thread and the loader's producer on the -t break
-        with closing(device_batches(train_reader, device, cfg.device_prefetch)) as batches:
-            for i, (images, _labels) in enumerate(batches):
-                last_loss = train_step(state, images, gen)
-                if cfg.test and i > 10:
-                    break
-                if i % cfg.print_freq == 0:
-                    losses.update(float(last_loss[-1]), global_batch)
-                    synchronize(device)
-                    batch_time.update((time() - end) / cfg.print_freq)
-                    end = time()
-                    print0(speed_line(epoch, i, nbatches, batch_time, losses, global_batch))
-        loss_history.append(losses.avg)
-        total_time.update(batch_time.avg)
-        print_loader_stats(cfg, train_reader)
-        train_reader.reset()
+    # the epoch-end save runs on a background thread while the next epoch
+    # trains (the reference blocks on torch.save, Contrastive_Learning.py:
+    # 517-530); it is on disk before the export and before the driver returns
+    saver = ckpt.AsyncCheckpointer()
+    try:
+        epoch = start_epoch - 1
+        for epoch in range(start_epoch, cfg.epochs):
+            # ---- train (reference train(), Contrastive_Learning.py:577-740) ----
+            batch_time = AverageMeter()
+            losses = AverageMeter()
+            nbatches = len(train_reader)
+            gen = generator(device, cfg.seed, epoch)
+            end = time()
+            # the copy of batch i+1 overlaps step i; closing() stops the
+            # transfer thread and the loader's producer on the -t break
+            with closing(device_batches(train_reader, device, cfg.device_prefetch)) as batches:
+                for i, (images, _labels) in enumerate(batches):
+                    last_loss = train_step(state, images, gen)
+                    if cfg.test and i > 10:
+                        break
+                    if i % cfg.print_freq == 0:
+                        losses.update(float(last_loss[-1]), global_batch)
+                        synchronize(device)
+                        batch_time.update((time() - end) / cfg.print_freq)
+                        end = time()
+                        print0(speed_line(epoch, i, nbatches, batch_time, losses, global_batch))
+            loss_history.append(losses.avg)
+            total_time.update(batch_time.avg)
+            print_loader_stats(cfg, train_reader)
+            train_reader.reset()
 
-        # ---- validate (reference validate(), :751-904) ----
-        # -t still validates and checkpoints within the single epoch
-        top1 = AverageMeter()
-        top5 = AverageMeter()
-        val_gen = generator(device, cfg.seed, 10_000 + epoch)
-        with closing(device_batches(val_reader, device)) as batches:
-            for i, (images, _labels) in enumerate(batches):
-                m = eval_step(state, images, val_gen)
-                top1.update(float(m["top1"]), global_batch)
-                top5.update(float(m["top5"]), global_batch)
-                if cfg.test and i > 10:
-                    break
-        val_reader.reset()
-        prec1, prec5 = top1.avg, top5.avg
-        top1_acc_history.append(prec1)
-        top5_acc_history.append(prec5)
+            # ---- validate (reference validate(), :751-904) ----
+            # -t still validates and checkpoints within the single epoch
+            top1 = AverageMeter()
+            top5 = AverageMeter()
+            val_gen = generator(device, cfg.seed, 10_000 + epoch)
+            with closing(device_batches(val_reader, device)) as batches:
+                for i, (images, _labels) in enumerate(batches):
+                    m = eval_step(state, images, val_gen)
+                    top1.update(float(m["top1"]), global_batch)
+                    top5.update(float(m["top5"]), global_batch)
+                    if cfg.test and i > 10:
+                        break
+            val_reader.reset()
+            prec1, prec5 = top1.avg, top5.avg
+            top1_acc_history.append(prec1)
+            top5_acc_history.append(prec5)
 
-        print0(f"From validation we have prec1 is {prec1} while best_prec1 "
-               f"is {best_prec1}")
-        is_best = prec1 > best_prec1
-        best_prec1 = max(prec1, best_prec1)
-        if parallel.is_main():
-            ckpt.save_checkpoint({
-                "epoch": epoch + 1,
-                "step": state.step,
-                "count": state.count,
-                "state_dict": model.state_dict(),
-                "best_prec1": best_prec1,
-                "optimizer": opt.state_dict(),
-                "loss_history": [float(x) for x in loss_history],
-                "top1_acc_history": [float(x) for x in top1_acc_history],
-                "top5_acc_history": [float(x) for x in top5_acc_history],
-                "total_time": total_time.state_dict(),
-            }, is_best, filename=ckpt_file, best_filename=best_file)
-        print0(perf_line(prec1, prec5, best_prec1, global_batch, total_time.avg))
-        if cfg.test:
-            break
+            print0(f"From validation we have prec1 is {prec1} while best_prec1 "
+                   f"is {best_prec1}")
+            is_best = prec1 > best_prec1
+            best_prec1 = max(prec1, best_prec1)
+            if parallel.is_main():
+                saver.save({
+                    "epoch": epoch + 1,
+                    "step": state.step,
+                    "count": state.count,
+                    "state_dict": model.state_dict(),
+                    "best_prec1": best_prec1,
+                    "optimizer": opt.state_dict(),
+                    "loss_history": [float(x) for x in loss_history],
+                    "top1_acc_history": [float(x) for x in top1_acc_history],
+                    "top5_acc_history": [float(x) for x in top5_acc_history],
+                    "total_time": total_time.state_dict(),
+                }, is_best, filename=ckpt_file, best_filename=best_file)
+            print0(perf_line(prec1, prec5, best_prec1, global_batch, total_time.avg))
+            if cfg.test:
+                break
+    finally:
+        saver.wait()
 
     if cfg.export_torch and parallel.is_main():
         # the model's state_dict already is the reference .pth.tar layout

@@ -51,9 +51,9 @@ from time import time
 import torch
 
 from multimodal_active_ai_tpu_torch import parallel
-from multimodal_active_ai_tpu_torch.config import DETRConfig, check_ported, parse_into
+from multimodal_active_ai_tpu_torch.config import DETRConfig, parse_into
 from multimodal_active_ai_tpu_torch.contrastive_learning import (
-    build_reader, generator, print_loader_stats)
+    DROPOUT_STREAM, build_reader, generator, print_loader_stats)
 from multimodal_active_ai_tpu_torch.data.prefetch import device_batches
 from multimodal_active_ai_tpu_torch.device import synchronize
 from multimodal_active_ai_tpu_torch.models import detr as detr_models
@@ -125,7 +125,6 @@ def resume(cfg, state: TrainState, steps_per_epoch: int,
 
 def main(argv=None):
     cfg = parse_into(DETRConfig, argv, prog="DETR_Image_Classification")
-    check_ported(cfg)
     device = parallel.initialize_distributed(cfg.device, cfg.multislice)
     try:
         return train(cfg, device)
@@ -182,10 +181,11 @@ def train(cfg, device: torch.device):
         batch_time, losses = AverageMeter(), AverageMeter()
         nbatches = len(train_reader)
         gen = generator(device, cfg.seed, 30_000 + epoch)
+        drop_gen = generator(device, cfg.seed, DROPOUT_STREAM + epoch)
         end = time()
         with closing(device_batches(train_reader, device)) as batches:
             for i, (images, labels) in enumerate(batches):
-                m = train_step(state, images, labels, gen)
+                m = train_step(state, images, labels, gen, dropout_generator=drop_gen)
                 if cfg.test and i > 10:
                     break
                 if i % cfg.print_freq == 0:

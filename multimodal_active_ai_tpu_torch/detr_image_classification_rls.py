@@ -59,9 +59,9 @@ import numpy as np
 import torch
 
 from multimodal_active_ai_tpu_torch import parallel
-from multimodal_active_ai_tpu_torch.config import RLSConfig, check_ported, parse_into
+from multimodal_active_ai_tpu_torch.config import RLSConfig, parse_into
 from multimodal_active_ai_tpu_torch.contrastive_learning import (
-    build_reader, generator, print_loader_stats)
+    DROPOUT_STREAM, build_reader, generator, print_loader_stats)
 from multimodal_active_ai_tpu_torch.data.prefetch import device_batches
 from multimodal_active_ai_tpu_torch.detr_image_classification import build_model, resume
 from multimodal_active_ai_tpu_torch.device import synchronize
@@ -97,7 +97,6 @@ def push_rollout(memory: ReplayMemory, ro: rls_train.RolloutResult, num_fixs: in
 
 def main(argv=None):
     cfg = parse_into(RLSConfig, argv, prog="DETR_Image_Classification_RLS")
-    check_ported(cfg)
     device = parallel.initialize_distributed(cfg.device, cfg.multislice)
     try:
         return train(cfg, device)
@@ -176,10 +175,12 @@ def train(cfg, device: torch.device):
     for epoch in range(start_epoch, cfg.epochs):
         batch_time, losses, dqn_losses = AverageMeter(), AverageMeter(), AverageMeter()
         gen, host_gen = generators(device, cfg.seed, 40_000 + epoch)
+        drop_gen = generator(device, cfg.seed, DROPOUT_STREAM + epoch)
         end = time()
         with closing(device_batches(train_reader, device)) as batches:
             for i, (images, labels) in enumerate(batches):
-                draws = rls_train.draw_rollout(gen, host_gen, batch, cfg.num_fixations)
+                draws = rls_train.draw_rollout(gen, host_gen, batch, cfg.num_fixations,
+                                               drop_gen)
                 m, ro, reward = train_step(state, policy, images, labels, epoch, draws)
                 push_rollout(memory, ro, draws.num_fixs, reward, cfg.dense_replay)
                 # the `and` draws the coin only once the memory is full enough,

@@ -12,7 +12,8 @@ learned queries come out as per-query class logits.
 Variable-length sequences are a static ``S`` plus a ``(B, S)`` pad mask
 (True = padded); padded glimpses still go through the backbone. The
 backbone has no train mode; only the transformer's dropout follows
-``train()``/``eval()``. With ``dtype=torch.bfloat16`` the forward runs
+``train()``/``eval()``, drawing from the ``generator`` passed to
+``forward``. With ``dtype=torch.bfloat16`` the forward runs
 under autocast (parameters float32, logits returned float32).
 
 Submodule names give the reference ``state_dict``: ``backbone.0.body.*``
@@ -98,16 +99,18 @@ class DETR(nn.Module):
         return feats.permute(0, 3, 1, 2).reshape(b, s, -1)
 
     def forward(self, glimpses: torch.Tensor, saccades: torch.Tensor,
-                mask: torch.Tensor | None = None) -> dict:
+                mask: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> dict:
         """``glimpses`` ``(B, S, g, g, 12)``, ``saccades`` ``(B, S, 2)`` (x, y)
-        in [0, 1), ``mask`` ``(B, S)`` bool (True = padded) → ``pred_logits``
-        ``(B, Q, num_classes)`` and ``aux_logits`` ``(dec_layers - 1, B, Q,
+        in [0, 1), ``mask`` ``(B, S)`` bool (True = padded), ``generator``
+        the dropout stream (train mode) → ``pred_logits`` ``(B, Q,
+        num_classes)`` and ``aux_logits`` ``(dec_layers - 1, B, Q,
         num_classes)``, float32."""
         with self._autocast(glimpses):
             src = F.linear(self.features(glimpses), self.input_proj.weight[:, :, 0],
                            self.input_proj.bias)                      # (B, S, hidden)
             pos = self.backbone[1](saccades)
-            hs, _ = self.transformer(src, mask, self.query_embed.weight, pos)
+            hs, _ = self.transformer(src, mask, self.query_embed.weight, pos, generator)
             logits = self.class_embed(hs)                             # (L, B, Q, classes)
         return {"pred_logits": logits[-1].float(), "aux_logits": logits[:-1].float()}
 

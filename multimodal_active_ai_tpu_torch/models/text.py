@@ -15,7 +15,9 @@ Port of ``multimodal_active_ai_tpu/models/text.py``:
 The sinusoid is this module's own (exponent ``2·(d // 2)/dim``, sin on even
 and cos on odd dimensions), not DETR's ``position_encoding``. Attention is
 the DETR port's flax-semantics :class:`MultiheadAttention`; LayerNorm ε is
-1e-6. Dropout follows the module's train/eval mode.
+1e-6. Dropout is active in train mode and draws from the ``generator``
+passed to ``forward``, as in :mod:`~multimodal_active_ai_tpu_torch.models.
+transformer`.
 """
 
 from __future__ import annotations
@@ -173,14 +175,16 @@ class TextEncoder(nn.Module):
                                     generator=generator) for _ in range(num_layers)])
         self.proj = _linear(d_model, out_dim, generator)
 
-    def forward(self, token_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, token_ids: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """``token_ids`` ``(B, L)`` integer; PAD_ID positions are masked
-        out. Returns ``(B, out_dim)`` float32."""
+        out; ``generator`` the dropout stream (train mode). Returns
+        ``(B, out_dim)`` float32."""
         pad = token_ids == PAD_ID
         x = self.embed(token_ids)
         pos = _sinusoid(token_ids.shape[1], x.shape[-1], x.device)[None]
         for layer in self.layers:
-            x = layer(x, pos, pad)
+            x = layer(x, pos, pad, generator=generator)
         keep = (~pad)[..., None].to(x.dtype)
         pooled = (x * keep).sum(1) / torch.clamp_min(keep.sum(1), 1)
         return self.proj(pooled).to(torch.float32)
@@ -200,10 +204,12 @@ class _CausalDecoderLayer(_FeedForward):
         self.norm2 = _layer_norm(d_model)
         self.norm3 = _layer_norm(d_model)
 
-    def forward(self, x, memory, mem_pos, causal, mem_pad=None):
-        x = self.norm1(x + self.self_attn(x, x, x, attn_mask=causal))
-        x = self.norm2(x + self.multihead_attn(x, memory + mem_pos, memory, mem_pad))
-        return self.norm3(x + self.ff(x))
+    def forward(self, x, memory, mem_pos, causal, mem_pad=None, generator=None):
+        g = generator
+        x = self.norm1(x + self.self_attn(x, x, x, attn_mask=causal, generator=g))
+        x = self.norm2(x + self.multihead_attn(x, memory + mem_pos, memory, mem_pad,
+                                               generator=g))
+        return self.norm3(x + self.ff(x, g))
 
 
 class GlimpseCaptioner(nn.Module):
@@ -224,10 +230,12 @@ class GlimpseCaptioner(nn.Module):
         self.head = _linear(d_model, vocab_size, generator)
 
     def forward(self, glimpse_feats: torch.Tensor, token_ids: torch.Tensor,
-                glimpse_mask: torch.Tensor | None = None) -> torch.Tensor:
+                glimpse_mask: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """``glimpse_feats`` ``(B, S, F)``; ``token_ids`` ``(B, L)`` caption
         prefix (teacher forcing); ``glimpse_mask`` ``(B, S)`` bool, True on
-        padded glimpses. Returns ``(B, L, vocab)`` float32 logits."""
+        padded glimpses; ``generator`` the dropout stream (train mode).
+        Returns ``(B, L, vocab)`` float32 logits."""
         s, length = glimpse_feats.shape[1], token_ids.shape[1]
         memory = self.memory_proj(glimpse_feats)
         d, dev = memory.shape[-1], memory.device
@@ -235,5 +243,5 @@ class GlimpseCaptioner(nn.Module):
         x = self.embed(token_ids) + _sinusoid(length, d, dev)[None]
         causal = torch.ones(length, length, dtype=torch.bool, device=dev).tril()
         for layer in self.layers:
-            x = layer(x, memory, mem_pos, causal, glimpse_mask)
+            x = layer(x, memory, mem_pos, causal, glimpse_mask, generator=generator)
         return self.head(self.norm(x)).to(torch.float32)

@@ -76,3 +76,23 @@ def contrastive_loss(hidden1: torch.Tensor, hidden2: torch.Tensor,
     loss_a = _softmax_cross_entropy(labels, torch.cat([logits_ab, logits_aa], 1))
     loss_b = _softmax_cross_entropy(labels, torch.cat([logits_ba, logits_bb], 1))
     return loss_a + loss_b, logits_ab, labels
+
+
+def naive_ntxent_loss(z1: torch.Tensor, z2: torch.Tensor, temperature: float) -> torch.Tensor:
+    """O(N²) per-pair NT-Xent following SimCLR's Algorithm 1 literally: the
+    test oracle of the JAX package (``objectives/ntxent.py:122-146``),
+    mirroring the reference's module-level loss (``SimCLR/SimCLR.py:
+    36-144``) with the paper's ``Sum / (2N)`` normalisation. The views are
+    interleaved as the reference does (``z[2k] = z2[k]``, ``z[2k+1] =
+    z1[k]``); returns the mean per-view loss, one process's rows only."""
+    n = z1.shape[0]
+    z = torch.stack([_l2_normalize(z2.float()), _l2_normalize(z1.float())], 1).reshape(2 * n, -1)
+    s = z @ z.T
+
+    def pair(i, j):
+        row = torch.exp(s[i] / temperature)
+        denom = row.sum() - torch.exp(s[i, i] / temperature)
+        return -torch.log(torch.exp(s[i, j] / temperature) / denom)
+
+    total = sum(pair(2 * k + 1, 2 * k) + pair(2 * k, 2 * k + 1) for k in range(n))
+    return total / (2 * n)

@@ -487,6 +487,24 @@ def apply_retina_views(pyramid: dict, params_views: AugParams,
     return _matmul_batch(pyramid, params_views, cfg, photometric, generator, noise)
 
 
+def unlabeled_glimpses(images: torch.Tensor, params: AugParams, cfg: RetinaConfig,
+                       generator: torch.Generator | None = None,
+                       noise: torch.Tensor | None = None) -> torch.Tensor:
+    """A SimCLR augmentation view → ``(B, g, g, 3L)`` float32 glimpse stacks
+    (``UnlabeledFoveatedRetinalProcessor``, ``NVIDIA_DALI_Pipelines.py:
+    444-479``, plus the channel stacking of ``SimCLR.py:24``): the
+    photometric view, its noise drawn from ``generator`` or given as
+    ``noise``."""
+    return apply_retina(images, params, cfg, True, generator=generator, noise=noise)
+
+
+def labeled_glimpses(images: torch.Tensor, params: AugParams,
+                     cfg: RetinaConfig) -> torch.Tensor:
+    """A labeled view, no photometrics (``LabeledFoveatedRetinalProcessor``,
+    ``NVIDIA_DALI_Pipelines.py:523-543``) → ``(B, g, g, 3L)``."""
+    return apply_retina(images, params, cfg, False)
+
+
 def foveated_pyramid(image: torch.Tensor, fix_yx: torch.Tensor, angle: torch.Tensor,
                      cfg: RetinaConfig | None = None):
     """The visualisation pipeline of one image ``(S, S, 3)``: its canvas

@@ -50,7 +50,7 @@ from time import time
 import torch
 
 from multimodal_active_ai_tpu_torch import parallel
-from multimodal_active_ai_tpu_torch.config import EvalConfig, check_ported, parse_into
+from multimodal_active_ai_tpu_torch.config import EvalConfig, parse_into
 from multimodal_active_ai_tpu_torch.contrastive_learning import (
     build_reader, epoch_examples, generator, print_loader_stats)
 from multimodal_active_ai_tpu_torch.data.prefetch import device_batches
@@ -84,7 +84,6 @@ def load_pretrained_encoder(encoder: SimCLRModule, path: str,
 
 def main(argv=None):
     cfg = parse_into(EvalConfig, argv, prog="Representation_Evaluation")
-    check_ported(cfg)
     device = parallel.initialize_distributed(cfg.device, cfg.multislice)
     try:
         return train(cfg, device)

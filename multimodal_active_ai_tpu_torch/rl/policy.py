@@ -1,9 +1,10 @@
 """ε-greedy saccade-action selection.
 
 Port of ``multimodal_active_ai_tpu/rl/policy.py`` (reference
-``DQN/Training.py:21-68``): the ε schedule and the greedy and random
-actions. The rollout (``train/rls_train.py``) draws its coins itself, one
-per fixation for the whole batch, on the host where it branches on them.
+``DQN/Training.py:21-68``): the ε schedule, the greedy and random
+actions, and :func:`select_action`, ε-greedy with one coin per call. The
+rollout (``train/rls_train.py``) draws its coins itself, one per fixation
+for the whole batch, on the host where it branches on them.
 """
 
 from __future__ import annotations
@@ -51,3 +52,17 @@ def select_random_action(generator: torch.Generator, batch_size: int) -> torch.T
     """Uniform random fixation ``(B, 2)`` in [0, 1)² on ``generator``'s
     device (``Training.py:53-54``)."""
     return torch.rand((batch_size, 2), generator=generator, device=generator.device)
+
+
+def select_action(model: torch.nn.Module, states: torch.Tensor, generator: torch.Generator,
+                  host_generator: torch.Generator, *, epoch: int, eps_start: float,
+                  eps_end: float, eps_decay: float, num_of_actions: int) -> torch.Tensor:
+    """ε-greedy (``Training.py:21-49``) with one shared coin per call: the
+    whole batch explores or exploits together, as the reference's single
+    rank-0 ``random.random()`` decides. The coin comes from the CPU
+    ``host_generator`` (the branch is taken on the host), the random
+    fixations from ``generator``. Returns ``(B, 2)`` (x, y) in [0, 1)."""
+    coin = float(torch.rand((), generator=host_generator))
+    if coin > eps_threshold(epoch, eps_start, eps_end, eps_decay):
+        return select_action_from_policy(model, states, num_of_actions)
+    return select_random_action(generator, states.shape[0])

@@ -11,17 +11,18 @@ are aligned with the symmetric InfoNCE objective, which is NT-Xent with
 view 1 = image and view 2 = caption, with every operand differentiable
 (``torch_gather_semantics=False``) so that both towers get gradient.
 
-Randomness comes from an explicit ``torch.Generator`` (the fixations) and
-torch's own generator (the text tower's dropout); tests may hand in the
-fixations ``fix_yx`` ``(F·B, 2)``, view-major.
+Randomness comes from explicit ``torch.Generator``s: one for the fixations
+(tests may hand in ``fix_yx`` ``(F·B, 2)``, view-major instead) and, in the
+train step, one for the text tower's dropout (the JAX step's ``dropout``
+key).
 
 With several ranks (``parallel/``) the fixations are drawn for the global
 batch and each rank keeps its rows; the InfoNCE gathers both towers'
 embeddings from every rank with their gradient, so each rank's backward
 carries every rank's cotangent of its rows; the gradient is averaged over
 the ranks before the update, and the metrics returned are the global
-batch's (retrieval over all ``N·B`` pairs). Dropout masks are each rank's
-own draws.
+batch's (retrieval over all ``N·B`` pairs). The dropout masks are the
+global batch's draws (``models/transformer.py``).
 """
 
 from __future__ import annotations
@@ -54,9 +55,10 @@ class CaptionTowers(nn.Module):
 
 def _embeddings(towers: CaptionTowers, encoder: nn.Module, images: torch.Tensor,
                 tokens: torch.Tensor, retina_cfg: retina.RetinaConfig, num_fixations: int,
-                generator: torch.Generator | None, fix_yx: torch.Tensor | None):
+                generator: torch.Generator | None, fix_yx: torch.Tensor | None,
+                dropout_generator: torch.Generator | None = None):
     feats = extract_features(encoder, images, retina_cfg, num_fixations, generator, fix_yx)
-    return towers.image_head(feats), towers.text(tokens)
+    return towers.image_head(feats), towers.text(tokens, dropout_generator)
 
 
 def make_caption_probe_train_step(retina_cfg: retina.RetinaConfig, num_fixations: int,
@@ -64,17 +66,19 @@ def make_caption_probe_train_step(retina_cfg: retina.RetinaConfig, num_fixations
     """One step: both towers forward (the text tower in train mode, its
     dropout active), symmetric InfoNCE, one optimizer update of the image
     head and the text tower together (the encoder stays frozen). Returns
-    ``step(state, encoder, images, tokens, generator=None, fix_yx=None) ->
-    {"loss"}`` (a device scalar); ``state.model`` is the
-    :class:`CaptionTowers`."""
+    ``step(state, encoder, images, tokens, generator=None, fix_yx=None,
+    dropout_generator=None) -> {"loss"}`` (a device scalar);
+    ``dropout_generator`` draws the text tower's dropout (needed when its
+    rate is above 0); ``state.model`` is the :class:`CaptionTowers`."""
 
     def step(state: TrainState, encoder: nn.Module, images: torch.Tensor,
              tokens: torch.Tensor, generator: torch.Generator | None = None,
-             fix_yx: torch.Tensor | None = None) -> dict:
+             fix_yx: torch.Tensor | None = None,
+             dropout_generator: torch.Generator | None = None) -> dict:
         towers, opt = state.model, state.optimizer
         towers.train()
         img, txt = _embeddings(towers, encoder, images, tokens, retina_cfg, num_fixations,
-                               generator, fix_yx)
+                               generator, fix_yx, dropout_generator)
         loss, _, _ = contrastive_loss(img, txt, temperature=temperature,
                                       torch_gather_semantics=False)
         opt.zero_grad(set_to_none=True)

@@ -21,13 +21,16 @@ The optimizer follows the JAX package's ``make_detr_optimizer``
 * StepLR: ``lr·0.1^((step // steps_per_epoch) // lr_drop)``, set on each
   group before each update.
 
-Randomness comes from an explicit ``torch.Generator``; tests may hand in
-``num_fixs`` and the saccades instead.
+Randomness comes from explicit ``torch.Generator``s: one for the glimpse
+draws (tests may hand in ``num_fixs`` and the saccades instead) and, in
+the train step, one for the transformer's dropout (the JAX step's
+``dropout`` key).
 
 With several ranks (``parallel/``) ``num_fixs`` and the saccades are drawn
 for the global batch and each rank keeps its rows, every gradient (the
 ``frozen`` ones too, which the clip's norm counts) is averaged over the
 ranks before the clip, as optax clips the gradient of the global batch,
+the dropout masks are the global batch's draws (``models/transformer.py``)
 and the returned metrics are the global batch's.
 """
 
@@ -170,19 +173,22 @@ def make_detr_train_step(criterion, retina_cfg: retina.RetinaConfig,
                          num_fixations: int, clip_max_norm: float):
     """``train_classifier`` equivalent (``DETR_Image_Classification.py:
     538-654``). Returns ``step(state, images, labels, generator=None,
-    num_fixs=None, saccades=None) -> {"loss_ce", "class_error",
-    "grad_norm"}`` (device scalars; ``grad_norm`` before clipping);
-    ``state.schedule`` is :func:`step_lr`'s factor and ``state.step``
-    advances by one update."""
+    num_fixs=None, saccades=None, dropout_generator=None) -> {"loss_ce",
+    "class_error", "grad_norm"}`` (device scalars; ``grad_norm`` before
+    clipping); ``dropout_generator`` draws the transformer's dropout (needed
+    when its rate is above 0); ``state.schedule`` is :func:`step_lr`'s
+    factor and ``state.step`` advances by one update."""
 
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
              generator: torch.Generator | None = None, num_fixs=None,
-             saccades: torch.Tensor | None = None) -> dict:
+             saccades: torch.Tensor | None = None,
+             dropout_generator: torch.Generator | None = None) -> dict:
         glimpses, sacc, mask = collect_glimpse_sequence(
             images, retina_cfg, num_fixations, generator, saccades=saccades,
             num_fixs=num_fixs)
         state.model.train()
-        losses = criterion(state.model(glimpses, sacc, mask)["pred_logits"], labels)
+        pred = state.model(glimpses, sacc, mask, dropout_generator)["pred_logits"]
+        losses = criterion(pred, labels)
         norm = apply_update(state, losses["loss_ce"], clip_max_norm)
         return mean_across_replicas({"loss_ce": losses["loss_ce"].detach(),
                                      "class_error": losses["class_error"], "grad_norm": norm})

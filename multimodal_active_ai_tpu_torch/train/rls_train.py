@@ -13,8 +13,9 @@ the DETR classifier trains, a DQN learns where to look next:
   ``num_fixs``; the policy runs in eval mode and without gradient, so a
   rollout never moves its BatchNorm statistics;
 * the RLS train step updates the DETR head on the rollout (the optimizer
-  chain of ``detr_train``) and returns the per-sample reward, top-1
-  correctness of the query-mean logits of that step's train-mode forward;
+  chain of ``detr_train``; its dropout from ``draws.dropout``) and
+  returns the per-sample reward, top-1 correctness of the query-mean
+  logits of that step's train-mode forward;
 * the DQN update is the Bellman-Huber loss on a replay batch, the policy in
   train mode (its BatchNorm statistics move), the target in eval mode,
   every gradient clamped to ±1, then RMSprop; :func:`sync_target` copies
@@ -58,25 +59,29 @@ class RolloutResult(NamedTuple):
 
 
 class RolloutDraws(NamedTuple):
-    """The random draws of one rollout."""
+    """The random draws of one RLS step: the rollout's, and the generator
+    the train step's DETR dropout draws from (the JAX step's ``dropout``
+    key; None where the DETR runs in eval mode or without dropout)."""
 
     num_fixs: int                 # in [2, max(F, 3) − 1]
     coins: tuple[float, ...]      # one ε coin per fixation, U[0, 1)
     random_fix: torch.Tensor      # (F, B, 2) this rank's random fixations (x, y), U[0, 1)
+    dropout: torch.Generator | None = None
 
 
 def draw_rollout(generator: torch.Generator, host_generator: torch.Generator,
-                 batch: int, num_fixations: int) -> RolloutDraws:
+                 batch: int, num_fixations: int,
+                 dropout: torch.Generator | None = None) -> RolloutDraws:
     """``num_fixs`` and the coins from the CPU ``host_generator``, the
     random fixations of the global batch from ``generator`` on its device,
-    this rank's ``batch`` rows kept. ``num_fixs`` follows the reference's
-    ``torch.randint(2, F)`` with its exclusive high (``:688,694``), pinned
-    to 2 for F ≤ 3."""
+    this rank's ``batch`` rows kept; ``dropout`` is passed on. ``num_fixs``
+    follows the reference's ``torch.randint(2, F)`` with its exclusive high
+    (``:688,694``), pinned to 2 for F ≤ 3."""
     num_fixs = int(torch.randint(2, max(num_fixations, 3), (), generator=host_generator))
     coins = tuple(torch.rand(num_fixations, generator=host_generator).tolist())
     random_fix = torch.rand((num_fixations, batch * world_size(), 2), generator=generator,
                             device=generator.device)
-    return RolloutDraws(num_fixs, coins, local_rows(random_fix, 1))
+    return RolloutDraws(num_fixs, coins, local_rows(random_fix, 1), dropout)
 
 
 def make_rollout(retina_cfg: retina.RetinaConfig, num_fixations: int, num_of_actions: int,
@@ -119,7 +124,8 @@ def make_rls_train_step(criterion, retina_cfg: retina.RetinaConfig, num_fixation
     dqn, images, labels, epoch, draws) -> (metrics, rollout, reward)``:
     ``metrics`` holds ``loss_ce``, ``reward_mean`` and ``grad_norm``
     (device scalars), ``reward`` is ``(B,)`` float32 on the device, and
-    ``state.step`` advances by one update."""
+    ``state.step`` advances by one update; the DETR's dropout draws from
+    ``draws.dropout`` (needed when its rate is above 0)."""
     rollout_fn = make_rollout(retina_cfg, num_fixations, num_of_actions, eps_start, eps_end,
                               eps_decay)
 
@@ -127,7 +133,7 @@ def make_rls_train_step(criterion, retina_cfg: retina.RetinaConfig, num_fixation
              labels: torch.Tensor, epoch: int, draws: RolloutDraws):
         ro = rollout_fn(dqn, images, draws, epoch)
         state.model.train()
-        pred = state.model(ro.glimpses, ro.saccades, ro.mask)["pred_logits"]
+        pred = state.model(ro.glimpses, ro.saccades, ro.mask, draws.dropout)["pred_logits"]
         loss = criterion(pred, labels)["loss_ce"]
         norm = detr_train.apply_update(state, loss, clip_max_norm)
         # the reward is the query-mean top-1 correctness of this forward,

@@ -22,6 +22,13 @@
   and :func:`from_jax_caption_variables` do the same for the text tower,
   the caption decoder and the caption probe's two towers (its image head
   permuted per fixation block, as the probe's kernel is).
+* :func:`from_jax_legacy_resnet_variables` and
+  :func:`from_jax_resnet1d_variables` do the same for the legacy
+  15-channel ResNet and the 1-D ResNet (kernels HWIO → OIHW and WIO → OIW,
+  the 1-D head's first Dense permuted from the L-major flatten to the
+  C-major one).
+* :class:`AsyncCheckpointer` writes a payload on a background thread from
+  a host snapshot taken on the caller's thread.
 * :func:`load_simclr_backbone` puts a SimCLR ``state_dict``'s encoder ``f``
   into a DETR backbone with FrozenBatchNorm buffers.
 * :func:`save_checkpoint` / :func:`load_checkpoint` write and read a
@@ -50,6 +57,7 @@ from __future__ import annotations
 
 import os
 import shutil
+import threading
 from collections import OrderedDict
 from typing import Any
 
@@ -128,12 +136,7 @@ def _from_jax_encoder_and_heads(params: dict, batch_stats: dict | None,
         sd[key] = torch.from_numpy(np.array(value, dtype=dtype))
 
     def put_bn(tkey, p_bn, s_bn):
-        put(tkey + ".weight", p_bn["scale"])
-        put(tkey + ".bias", p_bn["bias"])
-        if batch_stats is not None:
-            put(tkey + ".running_mean", s_bn["mean"])
-            put(tkey + ".running_var", s_bn["var"])
-            put(tkey + ".num_batches_tracked", 0, np.int64)
+        _put_bn(sd, tkey, p_bn, s_bn if batch_stats is not None else None)
 
     f_params, f_stats = params["f"], stats.get("f", {})
     put("f.conv1.weight", _conv_hwio_to_oihw(f_params["conv1"]["kernel"]))
@@ -166,6 +169,78 @@ def _from_jax_encoder_and_heads(params: dict, batch_stats: dict | None,
         put(f"{head}.layers.0.bias", g["Dense_0"]["bias"])
         put(f"{head}.layers.2.weight", np.asarray(g["Dense_1"]["kernel"]).T)
         put(f"{head}.layers.2.bias", g["Dense_1"]["bias"])
+    return sd
+
+
+def _put_bn(sd: dict, key: str, p_bn: dict, s_bn: dict | None) -> None:
+    """A flax BatchNorm's ``scale``/``bias`` and, unless ``s_bn`` is None,
+    its ``mean``/``var`` (``num_batches_tracked`` an int64 zero) under
+    ``key``."""
+    sd[key + ".weight"] = _f32(p_bn["scale"])
+    sd[key + ".bias"] = _f32(p_bn["bias"])
+    if s_bn is not None:
+        sd[key + ".running_mean"] = _f32(s_bn["mean"])
+        sd[key + ".running_var"] = _f32(s_bn["var"])
+        sd[key + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+
+def _conv_wio_to_oiw(k) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(np.asarray(k), (2, 1, 0)))
+
+
+def _from_jax_plain_resnet(params: dict, batch_stats: dict | None,
+                           conv) -> "OrderedDict[str, torch.Tensor]":
+    """The trunk of a JAX ``LegacyResNet`` or ``ResNet1d`` (``conv1``,
+    ``bn1``, ``layer{s}_{i}``) → ``conv1``, ``bn1``, ``layer{s}.{i}.conv{k}``/
+    ``bn{k}`` and ``shortcut.{0,1}``, each kernel through ``conv``. A block
+    whose first kernel is 1 tap wide is a bottleneck (three main convs),
+    else basic (two); a conv beyond those is the shortcut's."""
+    stats = batch_stats or {}
+    with_stats = batch_stats is not None
+    sd: OrderedDict[str, torch.Tensor] = OrderedDict()
+    sd["conv1.weight"] = _f32(conv(params["conv1"]["kernel"]))
+    _put_bn(sd, "bn1", params["bn1"], stats.get("bn1") if with_stats else None)
+    for name in sorted((k for k in params if k.startswith("layer")),
+                       key=lambda k: tuple(int(x) for x in k[5:].split("_"))):
+        stage, idx = name[5:].split("_")
+        block_p, block_s = params[name], stats.get(name, {})
+        convs = _sorted_slots(block_p, "Conv_")
+        bns = _sorted_slots(block_p, "BatchNorm_")
+        n_main = 3 if np.shape(block_p[convs[0]]["kernel"])[0] == 1 else 2
+        keys = [f"conv{j + 1}" for j in range(n_main)] + ["shortcut.0"]
+        norms = [f"bn{j + 1}" for j in range(n_main)] + ["shortcut.1"]
+        for c, b, ck, bk in zip(convs, bns, keys, norms):
+            sd[f"layer{stage}.{idx}.{ck}.weight"] = _f32(conv(block_p[c]["kernel"]))
+            _put_bn(sd, f"layer{stage}.{idx}.{bk}", block_p[b],
+                    block_s.get(b) if with_stats else None)
+    return sd
+
+
+def from_jax_legacy_resnet_variables(params: dict, batch_stats: dict | None
+                                     ) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``LegacyResNet`` variables (``models/resnet_legacy.py``) → the
+    port's ``LegacyResNet`` ``state_dict``: convs HWIO → OIHW, BatchNorm
+    ``scale``/``bias``/``mean``/``var`` (``batch_stats=None``: parameters
+    only)."""
+    return _from_jax_plain_resnet(params, batch_stats, _conv_hwio_to_oihw)
+
+
+def from_jax_resnet1d_variables(params: dict, batch_stats: dict | None
+                                ) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``ResNet1d`` variables → the port's ``ResNet1d`` ``state_dict``:
+    convs ``(W, I, O)`` → ``(O, I, W)``; the head's ``Dense_0`` rows, which
+    read the ``(L', C)`` map flattened L-major, permuted to the C-major
+    flatten (:func:`linear_on_flattened_conv` on a ``(C, 1, L')`` map),
+    ``Dense_1`` transposed."""
+    sd = _from_jax_plain_resnet(params, batch_stats, _conv_wio_to_oiw)
+    # the trunk's output channels: the last norm's (its last block's output)
+    channels = next(v for k, v in reversed(sd.items()) if k.endswith(".bias")).shape[0]
+    k0 = np.asarray(params["Dense_0"]["kernel"])
+    sd["linear1.weight"] = _f32(linear_on_flattened_conv(
+        k0, (channels, 1, k0.shape[0] // channels)))
+    sd["linear1.bias"] = _f32(params["Dense_0"]["bias"])
+    sd["linear2.weight"] = _f32(np.asarray(params["Dense_1"]["kernel"]).T)
+    sd["linear2.bias"] = _f32(params["Dense_1"]["bias"])
     return sd
 
 
@@ -427,6 +502,61 @@ def save_checkpoint(payload: dict[str, Any], is_best: bool,
         print("Saving a new best model with precesion {}".format(payload.get("best_prec1")))
         os.makedirs(os.path.dirname(os.path.abspath(best_filename)), exist_ok=True)
         shutil.copyfile(filename, best_filename)
+
+
+def _host_snapshot(obj):
+    """A copy of ``obj`` (nested dicts, lists and tuples) in which every
+    tensor is a new CPU tensor, complete when this returns: later in-place
+    updates of the originals (the next optimizer step) do not reach it."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return type(obj)((k, _host_snapshot(v)) for k, v in obj.items())
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_snapshot(v) for v in obj)
+    return obj
+
+
+class AsyncCheckpointer:
+    """Checkpoint writes off the epoch loop's thread.
+
+    Port of the JAX package's ``AsyncCheckpointer``
+    (``utils/checkpoint.py:65-120``): :meth:`save` snapshots the payload to
+    host memory on the caller's thread (``state_dict()`` tensors are the
+    live ones, which the next step updates in place) and hands
+    ``torch.save``, the atomic rename and the best-model copy
+    (:func:`save_checkpoint`) to one background thread. At most one save
+    is in flight: a second :meth:`save` first waits for the previous one, so
+    checkpoints land in order. :meth:`wait` blocks until the save in flight
+    is on disk and re-raises its error on the caller's thread; call it
+    before reading the files or returning."""
+
+    def __init__(self):
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+
+    def save(self, payload: dict[str, Any], is_best: bool,
+             filename: str = "checkpoint.pth.tar",
+             best_filename: str = "model_best.pth.tar") -> None:
+        self.wait()
+        snapshot = _host_snapshot(payload)
+
+        def work():
+            try:
+                save_checkpoint(snapshot, is_best, filename, best_filename)
+            except BaseException as exc:  # noqa: BLE001 - re-raised by wait()
+                self._error = exc
+
+        self._thread = threading.Thread(target=work, name="checkpoint-save", daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("async checkpoint save failed") from err
 
 
 _ZIP_MAGIC = b"PK\x03\x04"

@@ -6,12 +6,14 @@ shapes from ``jax.eval_shape``, values from numpy, carried into the port by
 JAX step draws from its key recomputed and handed to the port, and the
 hashed template captions. Small sizes: ResNet10 encoder, canvas 64, B=4,
 F=2, a text tower of vocab 97, d 32, 2 heads, 2 layers, FFN 64, L 8,
-dropout 0 (flax broadcasts its attention-dropout mask and torch does not).
-Then the driver on the CPU: from a JAX-written SimCLR msgpack, its resume,
-and the resume from a JAX caption checkpoint with a vocabulary.
+dropout 0 (the random draws cannot cross; ``test_torch_port_dropout.py``
+holds the port's dropout to flax's semantics). Then the driver on the CPU:
+from a JAX-written SimCLR msgpack, its resume, and the resume from a JAX
+caption checkpoint with a vocabulary, on synthetic data and on files.
 """
 
 import dataclasses
+import json
 import os
 import re
 
@@ -331,11 +333,32 @@ def test_driver_encoder_is_the_jax_checkpoints(jax_simclr_msgpack, jax_run):
                                                          for k in enc)
 
 
+def _caption_folder(root) -> str:
+    """A tiny ``--dataset mscoco`` folder: four 40x40 PNGs and a
+    ``captions.json`` beside them."""
+    from PIL import Image
+    os.makedirs(root)
+    rng = np.random.default_rng(8)
+    texts = ["a dog on a log", "a cat", "a red kite in the sky", "two dogs"]
+    for i in range(4):
+        Image.fromarray(rng.integers(0, 256, (40, 40, 3), dtype=np.uint8)).save(
+            os.path.join(root, f"im{i}.png"))
+    with open(os.path.join(root, "captions.json"), "w") as f:
+        json.dump({"images": [{"id": i, "file_name": f"im{i}.png"} for i in range(4)],
+                   "annotations": [{"image_id": i, "caption": t} for i, t in enumerate(texts)]},
+                  f)
+    return str(root)
+
+
 def test_driver_resumes_from_a_jax_caption_checkpoint(jax_simclr_msgpack, tmp_path, capsys):
     """A JAX caption payload (the JAX package's ``save_checkpoint``, with a
     corpus vocabulary) resumes in the port: its towers carried with the
-    head permuted per fixation, its vocabulary restored and written again
-    into the port's checkpoint, which a second resume reads back."""
+    head permuted per fixation. On ``--dataset synthetic`` (hashed captions)
+    the JAX driver keeps no vocabulary, and neither does the port: none
+    restored, no ``##Vocab`` line, no ``vocab_words_u8`` written. On caption
+    files (a tiny ``--dataset mscoco`` folder) the vocabulary is restored,
+    written again into the port's checkpoint, and a second resume reads it
+    back."""
     vocab = jtext.Vocabulary.build(["a dog on a log", "naïve café's cat", "a cat"], max_len=32)
     text = jtext.TextEncoder(vocab_size=vocab.size, out_dim=128)
     rng = np.random.default_rng(3)
@@ -351,20 +374,29 @@ def test_driver_resumes_from_a_jax_caption_checkpoint(jax_simclr_msgpack, tmp_pa
     args = [jax_simclr_msgpack] + ARGS + ["--vocab-size", str(vocab.size), "--checkpoint-dir", ck]
     state, got_vocab = driver.main(args + ["--resume", path, "--epochs", "0"])
     out = capsys.readouterr().out
-    assert "(epoch 3)" in out and state.step == 0
-    assert got_vocab.words == vocab.words and got_vocab.size == vocab.size
+    assert "(epoch 3)" in out and state.step == 0 and got_vocab is None
     want = tckpt.from_jax_caption_variables(params, F)
     now = state.model.state_dict()
     assert sorted(now) == sorted(want)
     assert all(torch.equal(now[k], v) for k, v in want.items())
 
-    state, _ = driver.main(args + ["--resume", path])
-    assert f"##Vocab {vocab.size} OOV-rate" in capsys.readouterr().out
+    state, got_vocab = driver.main(args + ["--resume", path])
+    assert got_vocab is None and "##Vocab" not in capsys.readouterr().out
+    payload = tckpt.load_checkpoint(os.path.join(ck, "caption_probe_checkpoint.pth.tar"))
+    assert payload["vocab_size"] == vocab.size and "vocab_words_u8" not in payload
+
+    data = _caption_folder(tmp_path / "coco")
+    files = [jax_simclr_msgpack, data] + ARGS[2:] + ["--dataset", "mscoco", "--vocab-size",
+                                                     str(vocab.size), "--checkpoint-dir", ck]
+    state, got_vocab = driver.main(files + ["--resume", path])
+    out = capsys.readouterr().out
+    assert "WARNING: caption corpus changed" in out and f"##Vocab {vocab.size} OOV-rate" in out
+    assert got_vocab.words == vocab.words and got_vocab.size == vocab.size
     payload = tckpt.load_checkpoint(os.path.join(ck, "caption_probe_checkpoint.pth.tar"))
     assert payload["vocab_size"] == vocab.size
     assert jtext.Vocabulary.from_u8(payload["vocab_words_u8"].numpy()).words == vocab.words
-    _, again = driver.main(args + ["--resume", os.path.join(ck, "caption_probe_checkpoint.pth.tar"),
-                                   "--epochs", "0"])
+    _, again = driver.main(files + ["--resume", os.path.join(ck, "caption_probe_checkpoint.pth.tar"),
+                                    "--epochs", "0"])
     assert again.words == vocab.words
 
 

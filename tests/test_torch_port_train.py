@@ -238,14 +238,17 @@ def test_driver_refuses_unported_flags(flag, tmp_path):
     """``--multislice`` is ported (``test_torch_port_distributed_drivers.py``),
     and so is a resume from a JAX checkpoint (``test_torch_port_resume.py``):
     any file that is not a torch zip is read as one, and one that lacks a
-    key the JAX driver reads is refused, naming the key. ``--unroll-fixations``
-    is not ported (ROADMAP A8)."""
+    key the JAX driver reads is refused, naming the key.
+    ``--unroll-fixations`` tunes only the JAX scan: the driver accepts it and
+    trains (its losses against ``0`` in ``test_torch_port_utils.py``)."""
     flag = [str(tmp_path / f) if f.endswith(".msgpack") else f for f in flag]
     (tmp_path / "jax.msgpack").write_bytes(b"\x81\xa5epoch\x01")   # {"epoch": 1}
-    error, match = ((ValueError, "no 'step', 'state_dict'") if flag[0] == "--resume"
-                    else (NotImplementedError, "unroll"))
-    with pytest.raises(error, match=match):
-        driver.main(DRIVER_ARGS + ["--device", "cpu"] + flag)
+    argv = DRIVER_ARGS + ["--device", "cpu", "--checkpoint-dir", str(tmp_path)] + flag
+    if flag[0] == "--resume":
+        with pytest.raises(ValueError, match="no 'step', 'state_dict'"):
+            driver.main(argv)
+    else:
+        assert driver.main(argv).step == 2 * F
 
 
 def test_driver_defaults_to_cuda_and_raises_without_it():

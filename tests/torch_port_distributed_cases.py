@@ -6,7 +6,10 @@ case as a real ``world``-process gloo job on the CPU (the port's
 ``initialize_distributed`` reading the JAX package's ``MAAI_*`` variables,
 with a ``file://`` rendezvous in the test's directory), and
 :func:`run_local` runs it in the calling process without a process group:
-the port's 1-rank result on the whole global batch. The module imports no
+the port's 1-rank result on the whole global batch. Every draw, dropout
+included, comes from a generator seeded in the case; torch's global
+generator is never seeded, so nothing can depend on it. The DETR, caption
+and RLS cases take ``inp["dropout"]`` (0 by default). The module imports no
 JAX, so a rank starts in about two seconds::
 
     python tests/torch_port_distributed_cases.py CASE IN.pt OUT.pt
@@ -178,8 +181,8 @@ def case_probe(inp: dict) -> dict:
             **_weights(probe), **{f"eval.{k}": v for k, v in ev.items()}}
 
 
-def _detr(sd=None) -> DETR:
-    model = DETR("ResNet10", CLASSES, **DETR_SMALL, generator=_gen(4))
+def _detr(sd=None, dropout: float = 0.0) -> DETR:
+    model = DETR("ResNet10", CLASSES, **{**DETR_SMALL, "dropout": dropout}, generator=_gen(4))
     if sd is not None:
         model.load_state_dict(sd)
     return model
@@ -193,13 +196,13 @@ def case_detr(inp: dict) -> dict:
     cfg = retina.RetinaConfig(**GEOM)
     crit = SetCriterion(DETR_SMALL["num_queries"], CLASSES)
     images, labels = local_rows(_images(8, 5)), local_rows(torch.arange(8) % CLASSES)
-    model = _detr()
+    model = _detr(dropout=float(inp.get("dropout", 0.0)))
     state = TrainState(model, detr_train.make_detr_optimizer(model, 1e-3, 1e-4, 1e-4,
                                                              pretrained_backbone=True),
                        detr_train.step_lr(1, 1))
     step = detr_train.make_detr_train_step(crit, cfg, F, 0.1)
-    gen = _gen(6)
-    ms = [step(state, images, labels, gen) for _ in range(2)]
+    gen, drop = _gen(6), _gen(19)
+    ms = [step(state, images, labels, gen, dropout_generator=drop) for _ in range(2)]
     ev = detr_train.make_detr_eval_step(crit, cfg, F)(state, images, labels, gen)
     out = {**{f"{k}": torch.stack([m[k] for m in ms]) for k in ms[0]}, **_grads(model),
            **_weights(model), **{f"eval.{k}": v for k, v in ev.items()}}
@@ -218,12 +221,13 @@ def case_detr(inp: dict) -> dict:
 def case_caption(inp: dict) -> dict:
     """Two caption-probe train steps (Adam, the symmetric InfoNCE with both
     towers' gradient) and the eval step, on a frozen random encoder, a
-    small text tower without dropout and hashed template captions."""
+    small text tower (dropout ``inp["dropout"]``, 0 by default) and hashed
+    template captions."""
     cfg = retina.RetinaConfig(**GEOM)
     encoder = SimCLRModule(arch="ResNet10", generator=_gen(0))
     g = _gen(9)
     text = TextEncoder(vocab_size=64, d_model=32, nhead=2, num_layers=1, dim_feedforward=64,
-                       out_dim=16, dropout=0.0, generator=g)
+                       out_dim=16, dropout=float(inp.get("dropout", 0.0)), generator=g)
     towers = caption_probe.CaptionTowers(512 * 16 * 2, text, hidden_dim=64, out_dim=16,
                                          generator=g)
     state = TrainState(towers, optimizers.get_optimizer("adam", towers.parameters()),
@@ -231,8 +235,8 @@ def case_caption(inp: dict) -> dict:
     images = local_rows(_images(8, 10))
     tokens = local_rows(torch.from_numpy(np.random.default_rng(11).integers(1, 64, (8, 6))))
     step = caption_probe.make_caption_probe_train_step(cfg, 2, 0.05)
-    gen = _gen(12)
-    ms = [step(state, encoder, images, tokens, gen) for _ in range(2)]
+    gen, drop = _gen(12), _gen(20)
+    ms = [step(state, encoder, images, tokens, gen, dropout_generator=drop) for _ in range(2)]
     ev = caption_probe.make_caption_probe_eval_step(cfg, 2, 0.05)(state, encoder, images,
                                                                   tokens, gen)
     return {"losses": torch.stack([m["loss"] for m in ms]), **_grads(towers),
@@ -247,7 +251,7 @@ def case_rls(inp: dict) -> dict:
     cfg = retina.RetinaConfig(**GEOM)
     crit = SetCriterion(DETR_SMALL["num_queries"], CLASSES)
     norm = "sync_bn" if parallel.world_size() > 1 else "bn"
-    model = _detr()
+    model = _detr(dropout=float(inp.get("dropout", 0.0)))
     policy = build_dqn("ResNet10", A, norm_kind=norm, generator=_gen(13))
     target = build_dqn("ResNet10", A, norm_kind=norm, generator=_gen(14))
     state = TrainState(model, detr_train.make_detr_optimizer(model, 1e-3, 1e-4, 1e-4,
@@ -258,7 +262,7 @@ def case_rls(inp: dict) -> dict:
     images, labels = local_rows(_images(8, 15)), local_rows(torch.arange(8) % CLASSES)
     eps = dict(eps_start=0.0, eps_end=0.0, eps_decay=1.0)
     gen, host = _gen(16), _gen(17)
-    draws = rls_train.draw_rollout(gen, host, images.shape[0], F)
+    draws = rls_train.draw_rollout(gen, host, images.shape[0], F, _gen(21))
     m, ro, reward = rls_train.make_rls_train_step(crit, cfg, F, A, **eps, clip_max_norm=0.1)(
         state, policy, images, labels, 1, draws)
     out = {f"train.{k}": v for k, v in m.items()}
@@ -287,7 +291,6 @@ CASES = {"concat": case_concat, "syncbn": case_syncbn, "ntxent": case_ntxent,
 def run_local(case: str, inputs: dict | None = None) -> dict:
     """The case in this process, without a process group: the 1-rank run
     on the whole global batch."""
-    torch.manual_seed(0)
     return CASES[case](inputs or {})
 
 
@@ -358,7 +361,6 @@ def run_driver(driver: str, args: list[str], cwds: list, world: int = 2,
 def _main() -> None:
     case, inp, out = sys.argv[1:4]
     torch.set_num_threads(1)
-    torch.manual_seed(0)
     parallel.initialize_distributed("cpu")
     try:
         result = CASES[case](torch.load(inp, weights_only=False))

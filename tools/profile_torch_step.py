@@ -74,6 +74,7 @@ from multimodal_active_ai_tpu_torch.ops import retina  # noqa: E402
 from multimodal_active_ai_tpu_torch.rl.replay_memory import ReplayMemory  # noqa: E402
 from multimodal_active_ai_tpu_torch.train import (  # noqa: E402
     caption_probe, detr_train, eval_probe, optimizers, rls_train, schedule, simclr_train)
+from multimodal_active_ai_tpu_torch.utils import profiling  # noqa: E402
 
 # kernel-name fragments → group, first match wins
 GROUPS = [
@@ -112,23 +113,20 @@ def timed(fn, steps: int) -> list[float]:
 
 
 def trace(fn):
-    """One traced, synchronised call of ``fn``: its device events (kernels,
-    memsets and copies, without the GPU ranges of user annotations such as
-    "Optimizer.step#Adam.step", which would count time twice), the number
-    of memsets and copies among them (device events but no kernel
-    launches; their number moves with the allocator's state from run to
-    run), the device busy ms and the traced host ms."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    """One traced, synchronised call of ``fn``: its device events as
+    ``(name, µs)`` (``utils/profiling.device_leaf_ops``: kernels, memsets
+    and copies, without the GPU ranges of user annotations, which would
+    count time twice), the number of memsets and copies among them (device
+    events but no kernel launches; their number moves with the allocator's
+    state from run to run), the device busy ms and the traced host ms."""
+    with profiling.trace() as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation]
-    memory_ops = sum(e.name.startswith(("Memset", "Memcpy")) for e in kernels)
-    busy_ms = sum(e.device_time_total for e in kernels) / 1e3 if kernels else 0.0
+    kernels = profiling.device_leaf_ops(prof)
+    memory_ops = sum(name.startswith(("Memset", "Memcpy")) for name, _ in kernels)
+    busy_ms = sum(us for _, us in kernels) / 1e3
     return kernels, memory_ops, busy_ms, traced_ms
 
 
@@ -170,6 +168,7 @@ def main(argv=None) -> int:
     cfg = retina.RetinaConfig(canvas_size=s)
     seeded = torch.Generator().manual_seed(15)
     gen = torch.Generator(device=device).manual_seed(0)
+    drop = torch.Generator(device=device).manual_seed(1)   # DETR/RLS/caption dropout
     images = torch.randint(0, 256, (b, s, s, 3), generator=gen, dtype=torch.uint8,
                            device=device)
     labels = torch.randint(0, 1000, (b,), generator=gen, device=device)
@@ -206,7 +205,7 @@ def main(argv=None) -> int:
         tokens = caption_tokens(labels, 32768, 32)
 
         def step(state, images, labels, gen):
-            return cap_step(state, encoder, images, tokens, gen)
+            return cap_step(state, encoder, images, tokens, gen, dropout_generator=drop)
     else:
         model = DETR(args.arch, dtype=dtype, generator=seeded)
         model = model.to(device).to(memory_format=torch.channels_last)
@@ -217,7 +216,7 @@ def main(argv=None) -> int:
             detr_step = detr_train.make_detr_train_step(SetCriterion(10, 1000), cfg, f, 0.1)
 
             def step(state, images, labels, gen):
-                return detr_step(state, images, labels, gen)
+                return detr_step(state, images, labels, gen, dropout_generator=drop)
         else:
             policy = build_dqn("ResNet18", 100, dtype=dtype, generator=seeded)
             policy = policy.to(device).to(memory_format=torch.channels_last)
@@ -232,7 +231,8 @@ def main(argv=None) -> int:
             host_gen = torch.Generator().manual_seed(0)
 
             def step(state, images, labels, gen):
-                draws = rls_train.draw_rollout(gen, host_gen, b, f)._replace(coins=(1.0,) * f)
+                draws = rls_train.draw_rollout(gen, host_gen, b, f, drop)._replace(
+                    coins=(1.0,) * f)
                 _, ro, reward = rls_step(state, policy, images, labels, 1, draws)
                 push_rollout(memory, ro, draws.num_fixs, reward, False)
                 if len(memory) >= 256:
@@ -280,10 +280,10 @@ def main(argv=None) -> int:
               f"{[round(w, 1) for w in waits[:-1]]}, {waits[-1]:.1f} ms in the traced step")
     by_group: dict[str, float] = {}
     by_name: dict[str, list] = {}
-    for e in kernels:
-        ms = e.device_time_total / 1e3
-        by_group[group_of(e.name)] = by_group.get(group_of(e.name), 0.0) + ms
-        rec = by_name.setdefault(e.name, [0.0, 0])
+    for name, us in kernels:
+        ms = us / 1e3
+        by_group[group_of(name)] = by_group.get(group_of(name), 0.0) + ms
+        rec = by_name.setdefault(name, [0.0, 0])
         rec[0] += ms
         rec[1] += 1
     median = times[len(times) // 2]

@@ -154,6 +154,24 @@ result line):
    init on the CPU and on the card, 20 steps: per-update losses within 1%.
    The ``kernels`` line carries case 1's B1 count and the fused ResNet50
    run's B2 and B3 counts as ``convergence_launches``.
+3m. The port's bench, ``multimodal_active_ai_tpu_torch.bench.main``, run
+   in-process as a user runs ``python -m multimodal_active_ai_tpu_torch.
+   bench``: the five modes (SimCLR train, DETR inference, probe, RLS,
+   captions) at ``bench.py``'s card defaults (b=128, canvas 640, 10 steps,
+   3 windows; SimCLR ResNet50 F=10, the downstream modes ResNet18, RLS
+   F=4 with a DQN update every step); SimCLR with ``BENCH_MFU=1`` (5
+   steps, 2 windows); SimCLR with ``BENCH_NORM=bn_fused
+   BENCH_STATS=pallas`` (3 steps, 2 windows); SimCLR on JPEG files with
+   ``BENCH_INPUT=host`` and ``BENCH_CACHE`` (5 steps); last, SimCLR with
+   ``BENCH_TRACE`` (2 steps, 2 windows). Each with the
+   counters set to 0 just before and read just after, held to the launches
+   its steps imply (B1 1+F a SimCLR step, 1 a DETR, probe or caption step,
+   F an RLS step; B2 (1+F)*17 and B3 (1+F)*36 a fused step; the warm-up
+   step and the MFU step included), its record's own ``launches`` to the
+   timed windows' share, every rate finite and above 0, and the record's
+   ``device`` the card. One line a run with the rates, the launches, the
+   peak memory and the card's name and power limit; the MFU and trace
+   lines; the phase's seconds.
 4. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX. It exits non-zero without CUDA, and when the
@@ -3154,6 +3172,104 @@ def _convergence_checks(torch, counters, device_name) -> dict:
     return out
 
 
+# phase 3m: the port's bench at bench.py's card defaults
+
+BENCH_W, BENCH_S = 3, 10     # bench.py's windows and steps on the card
+BENCH_RUNS = (   # label, knobs, the windows and steps they give
+    ("simclr", {}, BENCH_W, BENCH_S),
+    ("detr", {"BENCH_MODE": "detr"}, BENCH_W, BENCH_S),
+    ("probe", {"BENCH_MODE": "probe"}, BENCH_W, BENCH_S),
+    ("rls", {"BENCH_MODE": "rls"}, BENCH_W, BENCH_S),
+    ("captions", {"BENCH_MODE": "captions"}, BENCH_W, BENCH_S),
+    ("simclr mfu", {"BENCH_MFU": "1", "BENCH_STEPS": "5", "BENCH_WINDOWS": "2"}, 2, 5),
+    ("simclr bn_fused + pallas", {"BENCH_NORM": "bn_fused", "BENCH_STATS": "pallas",
+                                  "BENCH_STEPS": "3", "BENCH_WINDOWS": "2"}, 2, 3),
+    ("simclr host", {"BENCH_INPUT": "host", "BENCH_STEPS": "5"}, 1, 5),
+    # last: SimCLR steps after a torch.profiler trace in the same process
+    # ran 17% slower in one pairing on an H100 (PERF.md §6)
+    ("simclr trace", {"BENCH_STEPS": "2", "BENCH_WINDOWS": "2"}, 2, 2),
+)
+
+
+def bench_per_step(label: str) -> dict:
+    """The launches of one step of a bench run: B1 once a retina call (1+F
+    views a SimCLR step at F=10; one F·B plan a DETR, probe or caption
+    step; one a fixation of an RLS rollout at F=4), B2 in the 17 and B3 in
+    the 36 fused norms of each of the 1+F ResNet50 forwards."""
+    if not label.startswith("simclr"):
+        return {"glimpse_sample": 4 if label == "rls" else 1}
+    fused = "pallas" in label
+    return {"glimpse_sample": 1 + FIXATIONS, "stat_sums": (1 + FIXATIONS) * 17 * fused,
+            "conv1x1_stats": (1 + FIXATIONS) * 36 * fused}
+
+
+def run_bench_checks(torch, counters, workdir, device_name) -> dict:
+    """Phase 3m: ``bench.main`` in each run of :data:`BENCH_RUNS`, with the
+    counters set to 0 just before and read just after; fatal unless the
+    launches are those of its steps (:func:`bench_per_step` times the
+    warm-up step, the timed ones and the MFU count's), the record's own
+    ``launches`` the timed steps' share, every rate finite and above 0, and
+    its ``device`` the card. Returns each run's record and peak GiB."""
+    import contextlib
+    import io
+
+    from multimodal_active_ai_tpu_torch import bench
+
+    out = {}
+    for label, knobs, windows, steps in BENCH_RUNS:
+        knobs = dict(knobs)
+        if "trace" in label:
+            knobs["BENCH_TRACE"] = os.path.join(workdir, "bench_trace")
+        if "host" in label:
+            knobs["BENCH_CACHE"] = os.path.join(workdir, "bench_cache")
+        per_step = {**dict.fromkeys(counters, 0), **bench_per_step(label)}
+        timed = windows * steps
+        want = {k: v * (1 + timed + ("mfu" in label)) for k, v in per_step.items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters.values())
+        err, record_line = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        # the record is echoed below behind a label: the last lines of this
+        # script's output stay the kernels line and the result line
+        with contextlib.redirect_stderr(err), contextlib.redirect_stdout(record_line):
+            rec = bench.main(knobs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = {k: c.launches for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        notes = [x for x in err.getvalue().splitlines() if x.startswith("#")]
+        rates = [rec["value"]] + rec.get("windows_img_s_chip", []) + (
+            [rec["median_img_s_chip"]] if "median_img_s_chip" in rec else [])
+        print(f"bench {label} ({rec['metric']}, {rec.get('config', rec.get('norm', ''))}): best "
+              f"{rec['value']} img/s/chip, median {rec.get('median_img_s_chip', '-')}, windows "
+              f"{rec.get('windows_img_s_chip', '-')}; launches {got} (expected {want}; the "
+              f"record's timed {rec['launches']}); peak memory {peak:.2f} GiB; {secs:.1f} s "
+              f"[{device_name}]")
+        print(f"bench {label} record: {record_line.getvalue().strip()}")
+        for note in notes:
+            print(f"bench {label}: {note}")
+        if got != want:
+            fail(f"bench {label} launched {got}, expected {want}")
+        if rec["launches"] != {k: v * timed for k, v in per_step.items()}:
+            fail(f"bench {label}: the record's launches {rec['launches']} are not its "
+                 f"{timed} timed steps'")
+        if not all(math.isfinite(r) and r > 0 for r in rates):
+            fail(f"bench {label}: a rate is not finite and positive: {rates}")
+        if rec["device"]["name"] != torch.cuda.get_device_name(0) or "power_limit" not in \
+                rec["device"]:
+            fail(f"bench {label} ran on {rec['device']}, not on the card")
+        if "mfu" in label and not any(n.startswith("# MFU:") for n in notes):
+            fail(f"bench {label}: no MFU line")
+        if "trace" in label and not (
+                any(n.startswith("# trace of window 1") for n in notes)
+                and os.path.isfile(os.path.join(knobs["BENCH_TRACE"], "trace.json"))):
+            fail(f"bench {label}: no trace line or no trace.json in {knobs['BENCH_TRACE']}")
+        out[label] = (rec, peak)
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PACKAGE)):
         fail(f"{PACKAGE}/ is not beside chip_smoke.py; run it from the repository root")
@@ -3248,6 +3364,10 @@ def main() -> int:
         print(f"phase 3l (seven convergence cases, bn_fused case 1, ResNet50 bn vs bn_fused + "
               f"pallas, the loss curve on the CPU and the card): "
               f"{time.perf_counter() - t3l:.1f} s [{device_name}]")
+        t3m = time.perf_counter()
+        benched = run_bench_checks(torch, counters, workdir, device_name)
+        print(f"phase 3m (the port's bench: five modes, MFU + trace, bn_fused + pallas, host "
+              f"input): {time.perf_counter() - t3m:.1f} s [{device_name}]")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     rows["conv1x1_stats"]["launches"] = fused["conv1x1_stats"]
@@ -3311,6 +3431,10 @@ def main() -> int:
           f"bn from one state {conv['fused_rel']:.3e}, trained apart {conv['fused_drift']:.3e}; "
           f"loss curve cuda vs cpu {conv['curve_rel']:.3e} over {conv['curve_steps']} steps "
           f"[{device_name}]")
+
+    print("port bench (phase 3m; best / median img/s/chip, peak GiB): " + "; ".join(
+        f"{k} {r['value']} / {r.get('median_img_s_chip', '-')}, {g:.2f}"
+        for k, (r, g) in benched.items()) + f" [{device_name}]")
 
     # phase 4: results
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -8,6 +8,8 @@ chains the JAX package builds:
   (``optax.chain(add_decayed_weights, sgd(momentum))`` = ``torch.optim.SGD``
   with ``weight_decay`` and ``dampening=0``);
 * ``adam``: ``torch.optim.Adam`` with optax's β = (0.9, 0.999), ε = 1e-8;
+  with ``mu_dtype`` (``optax.adam(mu_dtype=)``) the first moment is kept in
+  that dtype and the update computed in float32 (:class:`AdamMuDtype`);
 * ``lars``: Adam wrapped in apex ``LARC`` (clip mode, trust coefficient
   η = 0.02): each parameter's Adam step is scaled by
   ``min(1, η·‖p‖ / (‖step‖ + 1e-8))`` when both norms are positive;
@@ -75,6 +77,47 @@ class LARCAdam(torch.optim.Optimizer):
                 p.add_(update * torch.clamp_max(ratio, 1.0), alpha=-group["lr"])
 
 
+class AdamMuDtype(torch.optim.Optimizer):
+    """optax's ``adam(mu_dtype=...)``: Adam whose first moment ``mu`` is
+    stored in ``mu_dtype`` (bf16 halves one of the moment streams an update
+    reads and writes). Each update follows ``optax.scale_by_adam`` step for
+    step: ``mu ← (1 − β1)·g + β1·mu`` (``β1·mu`` in ``mu_dtype``, with β1
+    itself rounded to ``mu_dtype`` as JAX's weak typing rounds the Python
+    float: 0.8984375 in bf16; the sum in float32), ``ν ← (1 − β2)·g² +
+    β2·ν`` in float32, the bias-corrected ratio ``μ̂ / (√ν̂ + ε)`` in
+    float32, ``p ← p − lr·ratio``, and only then ``mu`` rounded to
+    ``mu_dtype`` for storage."""
+
+    def __init__(self, params: Iterable, lr: float = 1e-3, mu_dtype: torch.dtype = torch.bfloat16,
+                 betas: tuple[float, float] = (0.9, 0.999), eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, mu_dtype=mu_dtype))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("AdamMuDtype takes no closure")
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad.to(torch.float32)
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    state["exp_avg"] = torch.zeros_like(p, dtype=group["mu_dtype"])
+                    state["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+                state["step"] += 1
+                t = state["step"]
+                b1_mu = torch.tensor(b1, dtype=group["mu_dtype"]).item()
+                mu = (1 - b1) * g + b1_mu * state["exp_avg"]
+                nu = state["exp_avg_sq"]
+                nu.copy_((1 - b2) * (g * g) + b2 * nu)
+                update = (mu / (1 - b1 ** t)) / (torch.sqrt(nu / (1 - b2 ** t)) + group["eps"])
+                p.add_(update.to(p.dtype), alpha=-group["lr"])
+                state["exp_avg"].copy_(mu)
+
+
 class RMSprop(torch.optim.Optimizer):
     """optax's ``rmsprop`` (``scale_by_rms`` then the learning rate):
     ``ν ← decay·ν + (1 − decay)·g²``, ``p ← p − lr·g·rsqrt(ν + ε)``."""
@@ -103,11 +146,18 @@ class RMSprop(torch.optim.Optimizer):
 
 
 def get_optimizer(name: str, params: Iterable, momentum: float = 0.9,
-                  weight_decay: float = 1e-4) -> torch.optim.Optimizer:
+                  weight_decay: float = 1e-4,
+                  mu_dtype: torch.dtype | None = None) -> torch.optim.Optimizer:
     """sgd / adam / lars / adamw / rmsprop with the reference's wiring (SGD
     takes momentum and weight decay, Adam, LARS and RMSprop only the
     learning rate, AdamW the weight decay). The initial learning rate is 0; the trainer sets it
-    per update."""
+    per update. ``mu_dtype`` (``adam`` only) keeps Adam's first moment in
+    that dtype (:class:`AdamMuDtype`); no driver sets it, the bench's
+    ``BENCH_ADAM_MU`` does."""
+    if mu_dtype is not None:
+        if name != "adam":
+            raise ValueError(f"mu_dtype is an option of adam, not of {name}")
+        return AdamMuDtype(params, lr=0.0, mu_dtype=mu_dtype)
     if name == "sgd":
         return torch.optim.SGD(params, lr=0.0, momentum=momentum,
                                weight_decay=weight_decay)

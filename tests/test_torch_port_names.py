@@ -5,7 +5,8 @@ imported, so no JAX), and each top-level public ``def`` and ``class`` must
 exist under the same name in the port's module of the same path (or the
 module ``MODULES`` maps it to), or be named in ``NAMES``: a counterpart
 under another name, which must exist, or the reason none is needed. The
-port's console scripts are read from ``pyproject.toml``.
+port's console scripts (the five drivers and the bench) are read from
+``pyproject.toml``.
 """
 
 import ast
@@ -128,7 +129,7 @@ def test_console_scripts_name_the_five_port_drivers():
     port = {k: v for k, v in scripts.items() if v.startswith(PORT + ".")}
     assert sorted(v.split(":")[0].split(".")[1] for v in port.values()) == sorted([
         "coco_captions_probe", "contrastive_learning", "detr_image_classification",
-        "detr_image_classification_rls", "representation_evaluation"])
+        "detr_image_classification_rls", "representation_evaluation", "bench"])
     for name, target in port.items():
         mod, attr = target.split(":")
         assert name.startswith("maai-torch-") and callable(

@@ -172,6 +172,29 @@ result line):
    ``device`` the card. One line a run with the rates, the launches, the
    peak memory and the card's name and power limit; the MFU and trace
    lines; the phase's seconds.
+3n. The JAX package's driver-level learning run (``tools/
+   torch_learning_run.py``) cut in epochs, and its last diagnostics as port
+   tools. (a) The JAX run's corpus (``tools/make_tiny_imagefolder.py``: 10
+   classes x 96 train + 16 val JPEGs at 640 px, seed 0) and the
+   wide-stripe cue corpus (4 classes x 120 + 24), the canvas cache under
+   ``/dev/shm``. (b) The part-1 and part-2 legs through each driver's
+   ``main`` at the JAX commands' widths (ResNet-50, canvas 640, b=96, F=5;
+   captions b=64): SimCLR 3 epochs, the probe, DETR and RLS 6 each and
+   captions 10, each from the SimCLR leg's ``model_best.pth.tar``; each
+   leg's per-epoch numbers beside the JAX TPU run's, its best top-1 (I2T
+   and T2I for captions; random control and policy for RLS) at least 2x
+   chance (SimCLR: finite losses), B1 launched as its code implies
+   (SimCLR ``steps·(1+F) + 2·eval_steps``; probe, DETR and captions one a
+   train and an eval step; RLS F a train step and 2F an eval batch), B2-B4
+   never. (c) ``tools/torch_cue_linear_probe.py`` on the cue corpus (R=3,
+   b=48): oracle val per-fix and random img-mean above chance + 0.15 beside
+   the JAX run's 0.701 / 0.938 / 1.000, B1 twice a batch. (d)
+   ``tools/torch_rls_cue_diag.py``'s from-init arm, 10 steps at b=48 on the
+   same corpus: finite CE, B1 3 a step. (e) ``tools/torch_bn_stat_bench.py``:
+   B2 within phase 2's tolerance of its plain version at all eight
+   ResNet-50 b=128 shapes, the ``bn`` form and B2 timed (ms, GB/s, share of
+   3.35 TB/s), B2's launches counted. Phase 3h also runs
+   ``tools/torch_multiprocess_check.py`` as a 2-rank job (3h(f)).
 4. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX. It exits non-zero without CUDA, and when the
@@ -1491,26 +1514,32 @@ def loader_stats(log: str, label: str) -> dict:
             "wait_ms": float(wait), "decoded": int(decoded), "hits": int(hits)}
 
 
-def run_logged(torch, counters, main, argv, label):
-    """One driver run with its output captured and printed under ``label``;
-    returns what ``main`` returns, the output, the launch counts and the
-    driver's step times (ms, from its ``-p 1`` speed lines)."""
+def captured(torch, counters, fn, *args):
+    """``fn(*args)`` with its output captured and the launch counters set to
+    0 just before and read just after: ``(result, output, launches,
+    seconds)``."""
     import contextlib
     import io
-    import re
     gc.collect()
     torch.cuda.synchronize()
     reset_counts(counters.values())
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        result = main(argv)
+        result = fn(*args)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    log = out.getvalue()
+    return (result, out.getvalue(), {k: c.launches for k, c in counters.items()},
+            time.perf_counter() - t0)
+
+
+def run_logged(torch, counters, main, argv, label):
+    """One driver run with its output captured and printed under ``label``;
+    returns what ``main`` returns, the output, the launch counts and the
+    driver's step times (ms, from its ``-p 1`` speed lines)."""
+    import re
+    result, log, got, wall = captured(torch, counters, main, argv)
     for line in log.splitlines():
         print(f"  [{label}] {line}")
-    got = {k: c.launches for k, c in counters.items()}
     steps = [1e3 * float(t) for t in re.findall(r"^Epoch: \[\d+\]\[\d+/\d+\]\s+Time (\S+) ",
                                                  log, re.M)]
     print(f"{label}: wall {wall:.2f} s; launches {got}")
@@ -1813,17 +1842,14 @@ def run_stat_fusion_paths(torch, counters, driver, ckpt_mod, device_name):
 DIST_EXAMPLES = 2 * BATCH      # the downstream jobs: 2 train steps, 1 eval batch a rank
 
 
-def run_ranks(torch, nproc: int, kind: str, outdir: str, argv: list[str],
-              timeout: float = 600.0):
-    """A torchrun job of ``nproc`` ranks of ``--rank-job kind outdir argv``;
-    fails unless every rank exits 0 within ``timeout`` seconds. Kills the
-    whole process group of the job on the way out. Returns the job's output
-    and each rank's record."""
+def torchrun(nproc: int, script: str, args: list[str], label: str,
+             timeout: float = 600.0) -> str:
+    """A torchrun job of ``nproc`` ranks of ``script args``; fails unless
+    every rank exits 0 within ``timeout`` seconds. Kills the whole process
+    group of the job on the way out. Returns the job's output."""
     import signal
-    os.makedirs(outdir, exist_ok=True)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           f"--nproc-per-node={nproc}", os.path.abspath(__file__), "--rank-job", kind,
-           outdir] + argv
+           f"--nproc-per-node={nproc}", script] + args
     p = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                          text=True, start_new_session=True)
     try:
@@ -1835,7 +1861,17 @@ def run_ranks(torch, nproc: int, kind: str, outdir: str, argv: list[str],
             os.killpg(p.pid, signal.SIGKILL)
             p.wait()
     if p.returncode != 0:
-        fail(f"{nproc}-rank job {kind} exited {p.returncode}:\n{out[-6000:]}")
+        fail(f"{nproc}-rank job {label} exited {p.returncode}:\n{out[-6000:]}")
+    return out
+
+
+def run_ranks(torch, nproc: int, kind: str, outdir: str, argv: list[str],
+              timeout: float = 600.0):
+    """A torchrun job of ``nproc`` ranks of ``--rank-job kind outdir argv``
+    (:func:`torchrun`). Returns the job's output and each rank's record."""
+    os.makedirs(outdir, exist_ok=True)
+    out = torchrun(nproc, os.path.abspath(__file__), ["--rank-job", kind, outdir] + argv, kind,
+                   timeout)
     return out, [torch.load(os.path.join(outdir, f"rank{r}.pt"), weights_only=False)
                  for r in range(nproc)]
 
@@ -2013,7 +2049,8 @@ def run_multi_rank_path(torch, simclr_ck: str, workdir: str, device_name: str) -
     never, rank 0 alone writing.
     (e) Step time per rank, the global img/s and the peak memory, beside
     the card's name and power limit; labelled when the ranks share a card
-    (no scaling figure)."""
+    (no scaling figure). (f) ``tools/torch_multiprocess_check.py`` as a
+    2-rank job: both ranks print OK on the backend of (a)."""
     cards = torch.cuda.device_count()
     nproc = 2
     shared = cards < nproc
@@ -2117,6 +2154,17 @@ def run_multi_rank_path(torch, simclr_ck: str, workdir: str, device_name: str) -
         if written != [True] * len(files) + [False] * len(files):
             fail(f"2-rank {name}: rank 0 alone must write {files}")
     print(f"phase 3h(d) (four drivers at 2 ranks): {time.perf_counter() - t0:.1f} s")
+
+    # (f): tools/torch_multiprocess_check.py, the port of the JAX package's
+    # multi-process check, as a 2-rank job
+    out = torchrun(nproc, os.path.join(ROOT, "tools", "torch_multiprocess_check.py"), [],
+                   "torch_multiprocess_check", timeout=300)
+    oks = sorted(line for line in out.splitlines() if line.startswith("MULTIPROCESS OK"))
+    for line in oks:
+        print(f"2-rank torch_multiprocess_check ({how}): {line}")
+    if len(oks) != nproc or not all(f"backend {backend}" in line for line in oks):
+        fail(f"torch_multiprocess_check: expected {nproc} OK lines on backend {backend}:\n"
+             f"{out[-3000:]}")
     return {"step_ms": step_ms, "peak_gib": peak, "how": how}
 
 
@@ -3270,6 +3318,176 @@ def run_bench_checks(torch, counters, workdir, device_name) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3n: the JAX package's driver-level learning run on the card, cut in
+# epochs (tools/torch_learning_run.py), and its last diagnostics as port
+# tools (torch_cue_linear_probe, torch_rls_cue_diag, torch_bn_stat_bench)
+
+# raised from 2/4/3/3/3 after the first card runs: the probe (10 warm-up
+# epochs, so its learning rate grows through the cut) reached 16.7% in 4;
+# DETR first cleared 20% in epoch 3-4, RLS in epoch 4, captions' I2T 3.1%
+# in epoch 5-7; captions run the JAX command's 10
+LEARNING_EPOCHS = {"part1_simclr": 3, "part1_probe": 6, "part2_detr": 6, "part2_rls": 6,
+                   "part2_captions": 10}
+LEARNING_BOUND = 2.0     # best top-1 (I2T and T2I for captions) >= 2x chance
+CUE_CORPUS = {"classes": 4, "per_class": 120, "val_per_class": 24}   # the queue9/10 corpus
+CUE_JAX = {"random val per-fix": 0.701, "random val img-mean": 0.938, "oracle val per-fix": 1.000}
+CUE_BATCH, RLS_DIAG_STEPS = 48, 10
+BN_BENCH_ITERS = 20
+
+
+def learning_b1(driver: str, argv: list[str], n_train: int, n_val: int) -> int:
+    """B1 launches a leg's code implies: once a retina call, so a SimCLR
+    train step launches 1+F and an eval step 2, a probe, DETR or caption
+    step 1 (the caption driver's eval reads the train images), an RLS train
+    step F and an RLS eval batch 2F (the random control and the policy)."""
+    from tools.torch_learning_run import flag_value
+
+    b, f = int(flag_value(argv, "-b")), int(flag_value(argv, "-f"))
+    epochs = int(flag_value(argv, "--epochs"))
+    steps, evals = math.ceil(n_train / b), math.ceil(n_val / b)
+    per_epoch = {"contrastive_learning": steps * (1 + f) + 2 * evals,
+                 "detr_image_classification_rls": steps * f + evals * 2 * f,
+                 "coco_captions_probe": 2 * steps}.get(driver, steps + evals)
+    return epochs * per_epoch
+
+
+def run_learning_checks(torch, counters, workdir, device_name) -> dict:
+    """Phase 3n. (a) The corpus of the JAX learning run
+    (``tools/make_tiny_imagefolder.py``: 10 classes x 96 + 16 at 640 px, seed
+    0) and the queue9/10 wide-stripe cue corpus (4 classes x 120 + 24),
+    written at once; the canvas cache under ``/dev/shm``. (b) The part-1
+    and part-2 legs of ``tools/torch_learning_run.py`` through each driver's
+    ``main`` at the JAX commands' widths (ResNet-50, canvas 640, b=96, F=5;
+    captions b=64), cut to :data:`LEARNING_EPOCHS`, each from the SimCLR
+    leg's ``model_best.pth.tar``: its per-epoch numbers printed beside the
+    JAX TPU run's, its best held to :data:`LEARNING_BOUND` times chance
+    (SimCLR: finite losses), its B1 launches to :func:`learning_b1`'s
+    count, B2-B4 to 0. (c) ``torch_cue_linear_probe`` on the
+    cue corpus (R=3, 400 probe steps, b=48): oracle val per-fix and random
+    img-mean above chance + 0.15, B1 twice a batch. (d) ``torch_rls_cue_diag``'s
+    from-init arm, 10 steps at b=48 on the same corpus: finite CE, B1 F = 3
+    a step. (e) ``torch_bn_stat_bench``: B2 within phase 2's tolerance of its
+    plain version at all eight shapes, both forms timed, B2's launches
+    counted. A miss in any of them is fatal. Returns what the summary
+    prints."""
+    import importlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tools import torch_bn_stat_bench as bnb
+    from tools import torch_cue_linear_probe as cue
+    from tools import torch_learning_run as lr
+    from tools import torch_rls_cue_diag as diag
+
+    none = dict.fromkeys(counters, 0)
+    out: dict = {"legs": {}}
+    c = lr.CORPUS
+    data, cued = os.path.join(workdir, "tiny10"), os.path.join(workdir, "cue4")
+    n_train, n_val = c["classes"] * c["per_class"], c["classes"] * c["val_per_class"]
+    cue_images = CUE_CORPUS["classes"] * (CUE_CORPUS["per_class"] + CUE_CORPUS["val_per_class"])
+    cache = tempfile.mkdtemp(prefix="chip_smoke_cache_", dir=lr.cache_parent(
+        (n_train + n_val + cue_images) * CANVAS ** 2 * 3))
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2) as pool:
+            jobs = [pool.submit(lr.make_corpus, data, c["classes"], c["per_class"],
+                                c["val_per_class"], c["size"], c["seed"]),
+                    pool.submit(lr.make_corpus, cued, CUE_CORPUS["classes"],
+                                CUE_CORPUS["per_class"], CUE_CORPUS["val_per_class"], CANVAS,
+                                0, "wide-stripe")]
+            for job in jobs:
+                job.result()
+        out["corpus_s"] = time.perf_counter() - t0
+        print(f"learning corpus: {n_train} + {n_val} JPEGs at {c['size']} px and the "
+              f"wide-stripe corpus {cue_images} JPEGs, in {out['corpus_s']:.1f} s; canvas "
+              f"cache in {cache}")
+
+        # (b) the part-1 and part-2 legs, cut in epochs
+        for name, epochs in LEARNING_EPOCHS.items():
+            leg = lr.LEG_BY_NAME[name]
+            argv = lr.leg_argv(leg, data, workdir, cache, "cuda", epochs=epochs)
+            model = lr.model_path(leg, workdir)
+            if model and not os.path.isfile(model):
+                fail(f"learning {name}: {leg.model_from} wrote no {model}")
+            driver = importlib.import_module(f"{PACKAGE}.{leg.driver}")
+            _, log, got, secs = captured(torch, counters, driver.main, argv)
+            s = lr.leg_summary(leg, argv, log, secs, 0)
+            want = {**none, "glimpse_sample": learning_b1(leg.driver, argv, n_train, n_val)}
+            print(f"learning {name} ({epochs} of the JAX run's "
+                  f"{lr.flag_value(leg.argv, '--epochs')} epochs):")
+            lr.print_leg(s)
+            print(f"learning {name}: launches {got} (expected {want}) [{device_name}]")
+            if "problem" in s:
+                fail(f"learning {name}: {s['problem']}\n{log[-3000:]}")
+            if got != want:
+                fail(f"learning {name} launched {got}, expected {want}")
+            if leg.driver == "contrastive_learning":
+                if not s["loss"] or not all(math.isfinite(x) for x in s["loss"]):
+                    fail(f"learning {name}: a loss is not finite: {s['loss']}")
+            else:
+                short = {k: v for k, v in s["best"].items() if k != "top5"
+                         and not v >= LEARNING_BOUND * s["chance"]}
+                if short:
+                    fail(f"learning {name}: best {short} below {LEARNING_BOUND} x chance "
+                         f"{s['chance']:.2f}")
+            out["legs"][name] = s
+
+        # (c) the cue probe
+        cue_args = ["none", cued, "-b", str(CUE_BATCH), "--canvas-cache", cache]
+        res, log, got, secs = captured(torch, counters, cue.main, cue_args)
+        batches = math.ceil(CUE_CORPUS["classes"] * CUE_CORPUS["per_class"] / CUE_BATCH) + \
+            math.ceil(CUE_CORPUS["classes"] * CUE_CORPUS["val_per_class"] / CUE_BATCH)
+        want = {**none, "glimpse_sample": 2 * batches}
+        chance = 1 / CUE_CORPUS["classes"]
+        nums = {"random val per-fix": res["random-fix"][1],
+                "random val img-mean": res["random-fix"][2],
+                "oracle val per-fix": res["oracle-fix"][1]}
+        verdict = [x for x in log.splitlines() if x.startswith("VERDICT")]
+        print(f"cue linear probe (wide-stripe, R=3, b={CUE_BATCH}): " + ", ".join(
+            f"{k} {v:.3f} (JAX TPU {CUE_JAX[k]:.3f})" for k, v in nums.items())
+            + f"; chance {chance:.3f}, bound {chance + cue.MARGIN:.3f}; launches {got} "
+            f"(expected {want}); {secs:.1f} s [{device_name}]")
+        print(f"cue linear probe: {verdict}")
+        if got != want:
+            fail(f"cue linear probe launched {got}, expected {want}")
+        if not (nums["oracle val per-fix"] > chance + cue.MARGIN
+                and nums["random val img-mean"] > chance + cue.MARGIN):
+            fail(f"cue linear probe below chance + {cue.MARGIN}: {nums}")
+        out["cue"] = nums
+
+        # (d) the RLS cue diagnostic's from-init arm
+        diag_args = ["none", cued, "--arm", "from-init", "--steps", str(RLS_DIAG_STEPS), "-b",
+                     str(CUE_BATCH), "--canvas-cache", cache]
+        res, log, got, secs = captured(torch, counters, diag.main, diag_args)
+        first, last = res["from-init"]
+        want = {**none, "glimpse_sample": RLS_DIAG_STEPS * 3}
+        print(f"RLS cue diagnostic, from-init arm ({RLS_DIAG_STEPS} steps, b={CUE_BATCH}, F=3): "
+              f"CE {first:.4f} -> {last:.4f} (ln 4 = {math.log(4):.4f}); launches {got} "
+              f"(expected {want}); {secs:.1f} s [{device_name}]")
+        if got != want:
+            fail(f"RLS cue diagnostic launched {got}, expected {want}")
+        if not (math.isfinite(first) and math.isfinite(last)):
+            fail(f"RLS cue diagnostic CE not finite: {first}, {last}")
+        out["diag"] = (first, last)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+
+    # (e) the BatchNorm statistics bench
+    rows, log, got, secs = captured(torch, counters, bnb.run, torch.device("cuda"),
+                                     torch.bfloat16, BN_BENCH_ITERS)
+    bnb.print_rows(rows, device_name)
+    # per shape: B2 twice in the check, then time_ms's call, warm-up and timed run
+    want = {**none, "stat_sums": len(bnb.SHAPES) * (2 + 1 + 2 * BN_BENCH_ITERS)}
+    print(f"BatchNorm statistics bench: launches {got} (expected {want}); {secs:.1f} s")
+    if got != want:
+        fail(f"BatchNorm statistics bench launched {got}, expected {want}")
+    bad = [r["shape"] for r in rows if not r["ok"]]
+    if bad:
+        fail(f"B2 disagrees with its plain version at {bad}")
+    out["bn"] = {k: sum(r[k] for r in rows) for k in ("bn_ms", "b2_ms", "bound_ms")}
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PACKAGE)):
         fail(f"{PACKAGE}/ is not beside chip_smoke.py; run it from the repository root")
@@ -3368,6 +3586,11 @@ def main() -> int:
         benched = run_bench_checks(torch, counters, workdir, device_name)
         print(f"phase 3m (the port's bench: five modes, MFU + trace, bn_fused + pallas, host "
               f"input): {time.perf_counter() - t3m:.1f} s [{device_name}]")
+        t3n = time.perf_counter()
+        learned = run_learning_checks(torch, counters, workdir, device_name)
+        print(f"phase 3n (the learning run's part-1 and part-2 legs cut in epochs, the cue "
+              f"probe, the RLS cue diagnostic, the BatchNorm statistics bench): "
+              f"{time.perf_counter() - t3n:.1f} s [{device_name}]")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     rows["conv1x1_stats"]["launches"] = fused["conv1x1_stats"]
@@ -3435,6 +3658,15 @@ def main() -> int:
     print("port bench (phase 3m; best / median img/s/chip, peak GiB): " + "; ".join(
         f"{k} {r['value']} / {r.get('median_img_s_chip', '-')}, {g:.2f}"
         for k, (r, g) in benched.items()) + f" [{device_name}]")
+
+    print("learning run (phase 3n; best %, chance %): " + "; ".join(
+        f"{k} " + ", ".join(f"{m} {v:.2f}" for m, v in leg["best"].items())
+        + f" ({leg['chance']:.2f})" for k, leg in learned["legs"].items())
+        + "; cue probe " + ", ".join(f"{k} {v:.3f}" for k, v in learned["cue"].items())
+        + f"; RLS cue diagnostic CE {learned['diag'][0]:.4f} -> {learned['diag'][1]:.4f}; "
+        f"BatchNorm statistics, one pass: bn {learned['bn']['bn_ms']:.4f} ms, B2 "
+        f"{learned['bn']['b2_ms']:.4f} ms, bound {learned['bn']['bound_ms']:.4f} ms "
+        f"[{device_name}]")
 
     # phase 4: results
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",

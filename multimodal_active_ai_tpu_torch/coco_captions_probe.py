@@ -290,7 +290,7 @@ def train(cfg, device: torch.device):
                     print0(f"Epoch: [{epoch}][{i}/{len(reader)}]\tLoss {losses.val:.6f} "
                            f"({losses.avg:.6f})\tTime {(time() - end) / cfg.print_freq:.3f}")
                     end = time()
-        print_loader_stats(cfg, reader)
+        print_loader_stats(cfg, reader, i + 1)
         reader.reset()
 
         gen = generator(device, cfg.seed, 40_000 + epoch)

@@ -75,7 +75,7 @@ from multimodal_active_ai_tpu_torch.models.norm import refuse_multi_device
 from multimodal_active_ai_tpu_torch.models.resnet import Bottleneck
 from multimodal_active_ai_tpu_torch.models.simclr import SimCLRModule
 from multimodal_active_ai_tpu_torch.ops import retina
-from multimodal_active_ai_tpu_torch.parallel import print0
+from multimodal_active_ai_tpu_torch.parallel import collectives, print0
 from multimodal_active_ai_tpu_torch.train import optimizers, schedule, simclr_train
 from multimodal_active_ai_tpu_torch.utils import checkpoint as ckpt
 from multimodal_active_ai_tpu_torch.utils.meters import AverageMeter, perf_line, speed_line
@@ -143,10 +143,17 @@ def epoch_examples(reader) -> int:
     return getattr(reader, "shard_size", None) or reader.num_examples
 
 
-def print_loader_stats(cfg, reader) -> None:
-    """Under ``-v``, a file reader's line for the epoch just read (rank 0's)."""
-    if cfg.verbose and isinstance(reader, HostLoader):
+def print_loader_stats(cfg, reader, steps: int) -> None:
+    """Under ``-v``, rank 0's lines for the ``steps`` train steps of the
+    epoch just run: a file reader's, and with several ranks the
+    collectives' calls and MB a step (their counters then restart)."""
+    if not cfg.verbose:
+        return
+    if isinstance(reader, HostLoader):
         print0(reader.stats_line())
+    if parallel.world_size() > 1:
+        print0(collectives.stats_line(steps))
+        collectives.reset_counts()
 
 
 def resume_jax(cfg, payload: dict, model: SimCLRModule, opt) -> int:
@@ -300,7 +307,7 @@ def train(cfg, device: torch.device):
                         print0(speed_line(epoch, i, nbatches, batch_time, losses, global_batch))
             loss_history.append(losses.avg)
             total_time.update(batch_time.avg)
-            print_loader_stats(cfg, train_reader)
+            print_loader_stats(cfg, train_reader, i + 1)
             train_reader.reset()
 
             # ---- validate (reference validate(), :751-904) ----

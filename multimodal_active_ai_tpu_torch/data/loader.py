@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from multimodal_active_ai_tpu_torch.data import readers
+from multimodal_active_ai_tpu_torch.utils.profiling import span
 
 
 class CanvasCache:
@@ -189,8 +190,10 @@ class HostLoader:
     in the consumer's thread; ``use_native`` the native decoder (None: where
     it builds; True raises where it does not); ``cache_dir`` the
     :class:`CanvasCache`. ``stats`` and
-    :meth:`stats_line` describe the current epoch. ``pin_memory`` allocates
-    each batch in page-locked memory.
+    :meth:`stats_line` describe the current epoch; the consumer's wait for a
+    prefetched batch (``stats["wait_s"]``) is also an ``input.wait`` span
+    under a profiler. ``pin_memory`` allocates each batch in page-locked
+    memory.
     """
 
     def __init__(self, files, labels=None, batch_size: int = 256, canvas_size: int = 640,
@@ -367,7 +370,8 @@ class HostLoader:
         try:
             while True:
                 t0 = perf_counter()
-                item = out_q.get()
+                with span("input.wait"):
+                    item = out_q.get()
                 self.stats["wait_s"] += perf_counter() - t0
                 if item is None:
                     return

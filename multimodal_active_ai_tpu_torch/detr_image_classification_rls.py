@@ -200,7 +200,7 @@ def train(cfg, device: torch.device):
                                      global_batch)
                            + f"\tDQN-Loss {dqn_losses.avg:.6f}"
                            + f"\tReward {float(m['reward_mean']):.3f}")
-        print_loader_stats(cfg, train_reader)
+        print_loader_stats(cfg, train_reader, i + 1)
         train_reader.reset()
         total_time.update(batch_time.avg)
 

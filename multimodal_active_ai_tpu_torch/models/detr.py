@@ -35,6 +35,7 @@ from multimodal_active_ai_tpu_torch.models.position_encoding import build_positi
 from multimodal_active_ai_tpu_torch.models.resnet import build_encoder, encoder_feature_dim
 from multimodal_active_ai_tpu_torch.models.transformer import build_transformer
 from multimodal_active_ai_tpu_torch.objectives.set_criterion import SetCriterion
+from multimodal_active_ai_tpu_torch.utils.profiling import span
 
 BACKBONE_NORMS = ("frozen", "group")
 
@@ -107,12 +108,15 @@ class DETR(nn.Module):
         num_classes)`` and ``aux_logits`` ``(dec_layers - 1, B, Q,
         num_classes)``, float32."""
         with self._autocast(glimpses):
-            src = F.linear(self.features(glimpses), self.input_proj.weight[:, :, 0],
-                           self.input_proj.bias)                      # (B, S, hidden)
-            pos = self.backbone[1](saccades)
+            feats = self.features(glimpses)
+            with span("models.embed"):
+                src = F.linear(feats, self.input_proj.weight[:, :, 0],
+                               self.input_proj.bias)                  # (B, S, hidden)
+                pos = self.backbone[1](saccades)
             hs, _ = self.transformer(src, mask, self.query_embed.weight, pos, generator)
-            logits = self.class_embed(hs)                             # (L, B, Q, classes)
-        return {"pred_logits": logits[-1].float(), "aux_logits": logits[:-1].float()}
+            with span("models.head"):
+                logits = self.class_embed(hs)                         # (L, B, Q, classes)
+                return {"pred_logits": logits[-1].float(), "aux_logits": logits[:-1].float()}
 
 
 def build(cfg, num_classes: int | None = None, dtype: torch.dtype = torch.float32,

@@ -31,6 +31,7 @@ from torch import nn
 
 from multimodal_active_ai_tpu_torch.models.conv_bn import IMPLS, conv1x1_bn
 from multimodal_active_ai_tpu_torch.models.norm import make_norm
+from multimodal_active_ai_tpu_torch.utils.profiling import span
 
 # variance_scaling(2, fan_out, truncated_normal): flax's stddev correction
 # for a normal truncated at ±2σ (the JAX package's conv_init)
@@ -154,10 +155,18 @@ class ResNet(nn.Module):
             setattr(self, f"layer{stage + 1}", nn.Sequential(*mods))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.permute(0, 3, 1, 2)                 # NHWC memory, NCHW view
-        x = self.relu(self.bn1(self.conv1(x)))
-        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
-        return x.permute(0, 2, 3, 1)
+        with span("models.encoder"):
+            x = x.permute(0, 3, 1, 2)             # NHWC memory, NCHW view
+            with span("models.encoder.stem"):
+                x = self.relu(self.bn1(self.conv1(x)))
+            for stage, name in _STAGES:
+                with span(name):
+                    x = getattr(self, stage)(x)
+            return x.permute(0, 2, 3, 1)
+
+
+# the stages and the names of their spans (``utils/profiling.span``)
+_STAGES = tuple((f"layer{i}", f"models.encoder.layer{i}") for i in range(1, 5))
 
 
 _ARCHS = {

@@ -15,6 +15,7 @@ from torch import nn
 
 from multimodal_active_ai_tpu_torch.models.mlp import MLP
 from multimodal_active_ai_tpu_torch.models.resnet import build_encoder, encoder_feature_dim
+from multimodal_active_ai_tpu_torch.utils.profiling import span
 
 
 class SimCLRModule(nn.Module):
@@ -39,8 +40,9 @@ class SimCLRModule(nn.Module):
 
     def forward(self, glimpses: torch.Tensor) -> torch.Tensor:
         with self._autocast(glimpses):
-            out = self.g(self.f(glimpses))
-        return out.to(torch.float32)
+            feats = self.f(glimpses)
+            with span("models.projector"):
+                return self.g(feats).to(torch.float32)
 
     def features(self, glimpses: torch.Tensor) -> torch.Tensor:
         """Encoder features only, ``(B, 4, 4, C)`` NHWC (the downstream

@@ -43,6 +43,7 @@ from torch import nn
 
 from multimodal_active_ai_tpu_torch.models.mlp import dense_init_
 from multimodal_active_ai_tpu_torch.parallel import local_rows, world_size
+from multimodal_active_ai_tpu_torch.utils.profiling import span
 
 LN_EPS = 1e-6
 
@@ -247,21 +248,24 @@ class Transformer(nn.Module):
         """``src`` ``(B, S, C)``; ``mask`` ``(B, S)`` bool (True = padded
         saccade) or None; ``query_embed`` ``(Q, C)``; ``pos_embed`` ``(B, S, C)``;
         ``generator`` the dropout stream (train mode)."""
-        memory = src
-        for layer in self.encoder.layers:
-            memory = layer(memory, pos_embed, mask, generator=generator)
-        if self.encoder.norm is not None:
-            memory = self.encoder.norm(memory)
-        query_pos = query_embed[None].expand(src.shape[0], -1, -1)
-        tgt = torch.zeros_like(query_pos)
-        intermediate = []
-        for layer in self.decoder.layers:
-            tgt = layer(tgt, memory, pos_embed, query_pos, mask, generator=generator)
-            if self.return_intermediate_dec:
-                intermediate.append(self.decoder.norm(tgt))
-        hs = torch.stack(intermediate) if self.return_intermediate_dec \
-            else self.decoder.norm(tgt)[None]
-        return hs, memory
+        with span("models.transformer"):
+            memory = src
+            with span("models.transformer.encoder"):
+                for layer in self.encoder.layers:
+                    memory = layer(memory, pos_embed, mask, generator=generator)
+                if self.encoder.norm is not None:
+                    memory = self.encoder.norm(memory)
+            with span("models.transformer.decoder"):
+                query_pos = query_embed[None].expand(src.shape[0], -1, -1)
+                tgt = torch.zeros_like(query_pos)
+                intermediate = []
+                for layer in self.decoder.layers:
+                    tgt = layer(tgt, memory, pos_embed, query_pos, mask, generator=generator)
+                    if self.return_intermediate_dec:
+                        intermediate.append(self.decoder.norm(tgt))
+                hs = torch.stack(intermediate) if self.return_intermediate_dec \
+                    else self.decoder.norm(tgt)[None]
+            return hs, memory
 
 
 def build_transformer(hidden_dim: int = 256, dropout: float = 0.1, nheads: int = 8,

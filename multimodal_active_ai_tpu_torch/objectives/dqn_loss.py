@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from multimodal_active_ai_tpu_torch.utils.profiling import span
+
 
 def huber(x: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
     """torch ``nn.SmoothL1Loss`` elementwise (β = ``delta``)."""
@@ -36,11 +38,12 @@ def dqn_bellman_loss(policy_qx: torch.Tensor, policy_qy: torch.Tensor,
     states, the target heads ``(B, A)`` on the next states (no gradient
     flows into them), ``actions`` ``(B, 2)`` in [0, 1) as stored in the
     replay memory, ``rewards`` ``(B,)``."""
-    idx = action_indices(actions, num_of_actions)
-    q_x = policy_qx.gather(1, idx[:, 0:1])[:, 0]
-    q_y = policy_qy.gather(1, idx[:, 1:2])[:, 0]
-    state_action_values = (q_x + q_y) / 2.0                  # Training.py:110-112
-    next_state_values = (target_qx.detach().amax(dim=1)
-                         + target_qy.detach().amax(dim=1)) / 2.0  # :118-122
-    expected = next_state_values * gamma + rewards            # Training.py:125
-    return huber(state_action_values - expected).mean()
+    with span("trainers.loss"):
+        idx = action_indices(actions, num_of_actions)
+        q_x = policy_qx.gather(1, idx[:, 0:1])[:, 0]
+        q_y = policy_qy.gather(1, idx[:, 1:2])[:, 0]
+        state_action_values = (q_x + q_y) / 2.0                  # Training.py:110-112
+        next_state_values = (target_qx.detach().amax(dim=1)
+                             + target_qy.detach().amax(dim=1)) / 2.0  # :118-122
+        expected = next_state_values * gamma + rewards            # Training.py:125
+        return huber(state_action_values - expected).mean()

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from multimodal_active_ai_tpu_torch.parallel import all_gather_with_grad, cross_replica_concat, rank
+from multimodal_active_ai_tpu_torch.utils.profiling import span
 
 LARGE_NUM = 1e9
 
@@ -47,35 +48,36 @@ def contrastive_loss(hidden1: torch.Tensor, hidden2: torch.Tensor,
     one-hot ``labels`` ``(B, 2N·B)`` for N ranks. The caller detaches
     ``hidden1`` where the reference does (the SimCLR step passes the
     previous view detached)."""
-    hidden1 = hidden1.to(torch.float32)
-    hidden2 = hidden2.to(torch.float32)
-    if hidden_norm:
-        hidden1 = _l2_normalize(hidden1)
-        hidden2 = _l2_normalize(hidden2)
-    batch_size = hidden1.shape[0]
-    if torch_gather_semantics:
-        def gather(x):
-            return cross_replica_concat(x, differentiable_local=False)
-    else:
-        gather = all_gather_with_grad
-    hidden1_large = gather(hidden1)
-    hidden2_large = gather(hidden2)
-    enlarged = hidden1_large.shape[0]
-    idx = torch.arange(batch_size, device=hidden1.device) + rank() * batch_size
-    labels = F.one_hot(idx, enlarged * 2).to(torch.float32)
-    masks = F.one_hot(idx, enlarged).to(torch.float32)
+    with span("trainers.loss"):
+        hidden1 = hidden1.to(torch.float32)
+        hidden2 = hidden2.to(torch.float32)
+        if hidden_norm:
+            hidden1 = _l2_normalize(hidden1)
+            hidden2 = _l2_normalize(hidden2)
+        batch_size = hidden1.shape[0]
+        if torch_gather_semantics:
+            def gather(x):
+                return cross_replica_concat(x, differentiable_local=False)
+        else:
+            gather = all_gather_with_grad
+        hidden1_large = gather(hidden1)
+        hidden2_large = gather(hidden2)
+        enlarged = hidden1_large.shape[0]
+        idx = torch.arange(batch_size, device=hidden1.device) + rank() * batch_size
+        labels = F.one_hot(idx, enlarged * 2).to(torch.float32)
+        masks = F.one_hot(idx, enlarged).to(torch.float32)
 
-    def sim(a, b):
-        return (a @ b.T) / temperature
+        def sim(a, b):
+            return (a @ b.T) / temperature
 
-    logits_aa = sim(hidden1, hidden1_large) - masks * LARGE_NUM
-    logits_bb = sim(hidden2, hidden2_large) - masks * LARGE_NUM
-    logits_ab = sim(hidden1, hidden2_large)
-    logits_ba = sim(hidden2, hidden1_large)
+        logits_aa = sim(hidden1, hidden1_large) - masks * LARGE_NUM
+        logits_bb = sim(hidden2, hidden2_large) - masks * LARGE_NUM
+        logits_ab = sim(hidden1, hidden2_large)
+        logits_ba = sim(hidden2, hidden1_large)
 
-    loss_a = _softmax_cross_entropy(labels, torch.cat([logits_ab, logits_aa], 1))
-    loss_b = _softmax_cross_entropy(labels, torch.cat([logits_ba, logits_bb], 1))
-    return loss_a + loss_b, logits_ab, labels
+        loss_a = _softmax_cross_entropy(labels, torch.cat([logits_ab, logits_aa], 1))
+        loss_b = _softmax_cross_entropy(labels, torch.cat([logits_ba, logits_bb], 1))
+        return loss_a + loss_b, logits_ab, labels
 
 
 def naive_ntxent_loss(z1: torch.Tensor, z2: torch.Tensor, temperature: float) -> torch.Tensor:

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from multimodal_active_ai_tpu_torch.utils.metrics import top_k_accuracy
+from multimodal_active_ai_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -26,9 +27,10 @@ class SetCriterion:
         """``pred_logits`` ``(B, Q, num_classes)`` and ``labels`` ``(B,)`` →
         ``loss_ce`` (mean cross-entropy over B×Q) and ``class_error``
         (100 − top-1 accuracy in %, over B×Q), device scalars."""
-        b, q, c = pred_logits.shape
-        flat_logits = pred_logits.reshape(b * q, c).float()
-        flat_targets = labels[:, None].expand(b, q).reshape(b * q)
-        loss_ce = F.cross_entropy(flat_logits, flat_targets)
-        class_error = 100.0 - top_k_accuracy(flat_logits.detach(), flat_targets, 1) * 100.0
-        return {"loss_ce": loss_ce, "class_error": class_error}
+        with span("trainers.loss"):
+            b, q, c = pred_logits.shape
+            flat_logits = pred_logits.reshape(b * q, c).float()
+            flat_targets = labels[:, None].expand(b, q).reshape(b * q)
+            loss_ce = F.cross_entropy(flat_logits, flat_targets)
+            class_error = 100.0 - top_k_accuracy(flat_logits.detach(), flat_targets, 1) * 100.0
+            return {"loss_ce": loss_ce, "class_error": class_error}

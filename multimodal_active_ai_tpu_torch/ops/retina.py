@@ -46,6 +46,7 @@ import torch
 
 from multimodal_active_ai_tpu_torch.ops import image_ops
 from multimodal_active_ai_tpu_torch.ops.glimpse_sample import glimpse_sample
+from multimodal_active_ai_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -143,34 +144,35 @@ def sample_unlabeled_params(gen: torch.Generator, batch_size: int,
     (1-v/2)+v·U, hue ~ U·hue, saturation ~ (1-s)+s·U. The gates stay on the
     device: no host synchronisation.
     """
-    n = (batch_size,)
-    fix = _uniform(gen, (batch_size, 2))
-    angle = (_uniform(gen, n) - 0.5) * cfg.fixation_angle_range
-    rrc_origin, rrc_size = _sample_rrc_window(gen, batch_size, src_size, cfg)
-    flip = _uniform(gen, n) < 0.5
+    with span("retina.draw"):
+        n = (batch_size,)
+        fix = _uniform(gen, (batch_size, 2))
+        angle = (_uniform(gen, n) - 0.5) * cfg.fixation_angle_range
+        rrc_origin, rrc_size = _sample_rrc_window(gen, batch_size, src_size, cfg)
+        flip = _uniform(gen, n) < 0.5
 
-    gm_on = _uniform(gen, ()) < cfg.grid_mask_prob
-    gm_ratio = torch.where(gm_on, _uniform(gen, n, 0.2, 0.5), 0.0)
-    gm_tile = torch.where(gm_on, torch.floor(_uniform(gen, n, 100.0, 500.0)), 1.0)
+        gm_on = _uniform(gen, ()) < cfg.grid_mask_prob
+        gm_ratio = torch.where(gm_on, _uniform(gen, n, 0.2, 0.5), 0.0)
+        gm_tile = torch.where(gm_on, torch.floor(_uniform(gen, n, 100.0, 500.0)), 1.0)
 
-    noise_on = _uniform(gen, ()) < cfg.gaussian_noise_prob
-    noise_mean = torch.where(noise_on, _uniform(gen, n) - 0.5, 0.0)
-    noise_std = torch.where(noise_on, _uniform(gen, n) * 100.0, 0.0)
+        noise_on = _uniform(gen, ()) < cfg.gaussian_noise_prob
+        noise_mean = torch.where(noise_on, _uniform(gen, n) - 0.5, 0.0)
+        noise_std = torch.where(noise_on, _uniform(gen, n) * 100.0, 0.0)
 
-    color_on = _uniform(gen, ()) < cfg.color_aug_prob
-    brightness = torch.where(
-        color_on, (1 - cfg.brightness / 2) + cfg.brightness * _uniform(gen, n), 1.0)
-    contrast = torch.where(
-        color_on, (1 - cfg.contrast / 2) + cfg.contrast * _uniform(gen, n), 1.0)
-    hue = torch.where(color_on, _uniform(gen, n) * cfg.hue, 0.0)
-    saturation = torch.where(
-        color_on, (1 - cfg.saturation) + cfg.saturation * _uniform(gen, n), 1.0)
+        color_on = _uniform(gen, ()) < cfg.color_aug_prob
+        brightness = torch.where(
+            color_on, (1 - cfg.brightness / 2) + cfg.brightness * _uniform(gen, n), 1.0)
+        contrast = torch.where(
+            color_on, (1 - cfg.contrast / 2) + cfg.contrast * _uniform(gen, n), 1.0)
+        hue = torch.where(color_on, _uniform(gen, n) * cfg.hue, 0.0)
+        saturation = torch.where(
+            color_on, (1 - cfg.saturation) + cfg.saturation * _uniform(gen, n), 1.0)
 
-    return AugParams(fix_yx=fix, angle=angle, rrc_origin_yx=rrc_origin,
-                     rrc_size_hw=rrc_size, flip=flip, noise_mean=noise_mean,
-                     noise_std=noise_std, gm_ratio=gm_ratio, gm_tile=gm_tile,
-                     brightness=brightness, contrast=contrast, hue=hue,
-                     saturation=saturation)
+        return AugParams(fix_yx=fix, angle=angle, rrc_origin_yx=rrc_origin,
+                         rrc_size_hw=rrc_size, flip=flip, noise_mean=noise_mean,
+                         noise_std=noise_std, gm_ratio=gm_ratio, gm_tile=gm_tile,
+                         brightness=brightness, contrast=contrast, hue=hue,
+                         saturation=saturation)
 
 
 def sample_labeled_params(gen: torch.Generator | None, batch_size: int,
@@ -178,10 +180,11 @@ def sample_labeled_params(gen: torch.Generator | None, batch_size: int,
     """Parameters of the labeled (probe/DETR) retina: the given fixation
     ``(B, 2)`` ``(y, x)`` or one drawn ~ U[0,1)² from ``gen``, no rotation,
     no crop, no photometrics; on ``fix_yx``'s or ``gen``'s device."""
-    if fix_yx is None:
-        fix_yx = _uniform(gen, (batch_size, 2))
-    p = neutral_params(batch_size, src_size, fix_yx.device)
-    return p._replace(fix_yx=fix_yx.to(torch.float32))
+    with span("retina.draw"):
+        if fix_yx is None:
+            fix_yx = _uniform(gen, (batch_size, 2))
+        p = neutral_params(batch_size, src_size, fix_yx.device)
+        return p._replace(fix_yx=fix_yx.to(torch.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -210,19 +213,20 @@ def build_pyramid(images: torch.Tensor, cfg: RetinaConfig) -> dict[int, torch.Te
     rounds again, as the JAX chain does. The pyramid depends only on the
     source batch, so a train step builds it once for all its views.
     """
-    factors = set(_mip_levels(cfg).values())
-    m = images.to(torch.bfloat16)
-    b, h, w, c = m.shape
-    mips = {1: m.reshape(b, h, w * c)}
-    f = 1
-    while f < max(factors):
-        m = (m.to(torch.float32).reshape(b, h // 2, 2, w // 2, 2, c)
-             .mean(dim=(2, 4)).to(torch.bfloat16))
-        h //= 2
-        w //= 2
-        f *= 2
-        mips[f] = m.reshape(b, h, w * c)
-    return mips
+    with span("retina.pyramid"):
+        factors = set(_mip_levels(cfg).values())
+        m = images.to(torch.bfloat16)
+        b, h, w, c = m.shape
+        mips = {1: m.reshape(b, h, w * c)}
+        f = 1
+        while f < max(factors):
+            m = (m.to(torch.float32).reshape(b, h // 2, 2, w // 2, 2, c)
+                 .mean(dim=(2, 4)).to(torch.bfloat16))
+            h //= 2
+            w //= 2
+            f *= 2
+            mips[f] = m.reshape(b, h, w * c)
+        return mips
 
 
 def _window_size(crop_size: int, factor: int, mip_size: int) -> int:
@@ -457,18 +461,20 @@ def apply_retina(images: torch.Tensor | None, params: AugParams,
     With ``photometric``, the standard-normal noise of shape
     :func:`noise_shape` is drawn from ``generator`` or given as ``noise``.
     """
-    if cfg.mode == "matmul":
-        if pyramid is None:
-            pyramid = build_pyramid(images, cfg)
-        return _matmul_batch(pyramid, params, cfg, photometric, generator, noise)
-    single = {"fused": _fused_batch, "canvas": _canvas_batch}.get(cfg.mode)
-    if single is None:
-        raise ValueError(f"unknown retina mode {cfg.mode!r} (matmul, fused or canvas)")
-    images = images.to(torch.float32)
-    if photometric and noise is None:
-        noise = torch.randn(noise_shape(cfg, images.shape[0]), generator=generator,
-                            device=images.device)
-    return single(images, params, cfg, photometric, noise)
+    with span("retina.sample"):
+        if cfg.mode == "matmul":
+            if pyramid is None:
+                pyramid = build_pyramid(images, cfg)
+            return _matmul_batch(pyramid, params, cfg, photometric, generator, noise)
+        single = {"fused": _fused_batch, "canvas": _canvas_batch}.get(cfg.mode)
+        if single is None:
+            raise ValueError(f"unknown retina mode {cfg.mode!r} (matmul, fused or canvas)")
+        images = images.to(torch.float32)
+        if photometric and noise is None:
+            with span("retina.draw"):
+                noise = torch.randn(noise_shape(cfg, images.shape[0]), generator=generator,
+                                    device=images.device)
+        return single(images, params, cfg, photometric, noise)
 
 
 def apply_retina_views(pyramid: dict, params_views: AugParams,
@@ -484,7 +490,8 @@ def apply_retina_views(pyramid: dict, params_views: AugParams,
     """
     if cfg.mode != "matmul":
         raise ValueError("apply_retina_views requires the matmul retina")
-    return _matmul_batch(pyramid, params_views, cfg, photometric, generator, noise)
+    with span("retina.sample"):
+        return _matmul_batch(pyramid, params_views, cfg, photometric, generator, noise)
 
 
 def unlabeled_glimpses(images: torch.Tensor, params: AugParams, cfg: RetinaConfig,

@@ -15,6 +15,15 @@ exists, at any world size; every rank must call it in the same order.
 * :func:`all_reduce_mean` / :func:`all_reduce_sum` reduce values for
   metrics; :func:`average_gradients` is the gradient all-reduce, one
   coalesced buffer a call.
+
+Every collective on the wire goes through one of three functions, each a
+span of its own under a profiler (``utils/profiling.span``):
+``collectives.gather`` (the all-gathers), ``collectives.sum`` (the
+all-reduces of values, forward and backward) and ``collectives.grad_mean``
+(:func:`average_gradients`). Each counts its ``calls`` and ``bytes`` (this
+rank's payload: the all-gather's local block, the all-reduce's buffer), as
+the kernels count their ``launches``; :func:`counts` reads them and
+:func:`stats_line` prints them a step.
 """
 
 from __future__ import annotations
@@ -24,18 +33,29 @@ import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from multimodal_active_ai_tpu_torch.parallel.distributed import rank, world_size
+from multimodal_active_ai_tpu_torch.utils.profiling import span
+
+
+def _count(fn, payload: torch.Tensor) -> None:
+    fn.calls += 1
+    fn.bytes += payload.numel() * payload.element_size()
 
 
 def _gather(x: torch.Tensor) -> torch.Tensor:
-    blocks = [torch.empty_like(x) for _ in range(world_size())]
-    dist.all_gather(blocks, x.contiguous())
-    return torch.cat(blocks, 0)
+    with span("collectives.gather"):
+        blocks = [torch.empty_like(x) for _ in range(world_size())]
+        block = x.contiguous()
+        dist.all_gather(blocks, block)
+        _count(_gather, block)
+        return torch.cat(blocks, 0)
 
 
 def _summed(x: torch.Tensor) -> torch.Tensor:
-    out = x.clone()
-    dist.all_reduce(out)
-    return out
+    with span("collectives.sum"):
+        out = x.clone()
+        dist.all_reduce(out)
+        _count(_summed, out)
+        return out
 
 
 class _AllGather(torch.autograd.Function):
@@ -103,9 +123,37 @@ def average_gradients(params) -> None:
     without a gradient stay out. Nothing to do at world 1."""
     if world_size() == 1:
         return
-    grads = [p.grad for p in params if p.grad is not None]
-    flat = _flatten_dense_tensors(grads)
-    dist.all_reduce(flat)
-    flat.div_(world_size())
-    for g, avg in zip(grads, _unflatten_dense_tensors(flat, grads)):
-        g.copy_(avg)
+    with span("collectives.grad_mean"):
+        grads = [p.grad for p in params if p.grad is not None]
+        flat = _flatten_dense_tensors(grads)
+        dist.all_reduce(flat)
+        _count(average_gradients, flat)
+        flat.div_(world_size())
+        for g, avg in zip(grads, _unflatten_dense_tensors(flat, grads)):
+            g.copy_(avg)
+
+
+_COUNTED = {"collectives.gather": _gather, "collectives.sum": _summed,
+            "collectives.grad_mean": average_gradients}
+for _fn in _COUNTED.values():
+    _fn.calls = _fn.bytes = 0
+
+
+def counts() -> dict[str, tuple[int, int]]:
+    """``{span name: (calls, bytes)}`` of the three collectives since the
+    process started or the last :func:`reset_counts`."""
+    return {name: (fn.calls, fn.bytes) for name, fn in _COUNTED.items()}
+
+
+def reset_counts() -> None:
+    for fn in _COUNTED.values():
+        fn.calls = fn.bytes = 0
+
+
+def stats_line(steps: int) -> str:
+    """One line: each collective's calls and MB a step over ``steps`` steps
+    since the last :func:`reset_counts`."""
+    n = max(steps, 1)
+    parts = [f"{name.split('.')[1]} {calls / n:.1f} calls {b / n / 1e6:.2f} MB"
+             for name, (calls, b) in counts().items()]
+    return f"collectives a step ({steps} steps): " + " | ".join(parts)

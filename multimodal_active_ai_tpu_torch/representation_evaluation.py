@@ -184,7 +184,7 @@ def train(cfg, device: torch.device):
                     batch_time.update((time() - end) / cfg.print_freq)
                     end = time()
                     print0(speed_line(epoch, i, nbatches, batch_time, losses, global_batch))
-        print_loader_stats(cfg, train_reader)
+        print_loader_stats(cfg, train_reader, i + 1)
         train_reader.reset()
         total_time.update(batch_time.avg)
 

@@ -39,6 +39,7 @@ from multimodal_active_ai_tpu_torch.train.eval_probe import extract_features
 from multimodal_active_ai_tpu_torch.train.simclr_train import TrainState, scheduled_update
 from multimodal_active_ai_tpu_torch.utils.meters import mean_across_replicas
 from multimodal_active_ai_tpu_torch.utils.metrics import top_k_accuracy
+from multimodal_active_ai_tpu_torch.utils.profiling import span
 
 
 class CaptionTowers(nn.Module):
@@ -75,17 +76,21 @@ def make_caption_probe_train_step(retina_cfg: retina.RetinaConfig, num_fixations
              tokens: torch.Tensor, generator: torch.Generator | None = None,
              fix_yx: torch.Tensor | None = None,
              dropout_generator: torch.Generator | None = None) -> dict:
-        towers, opt = state.model, state.optimizer
-        towers.train()
-        img, txt = _embeddings(towers, encoder, images, tokens, retina_cfg, num_fixations,
-                               generator, fix_yx, dropout_generator)
-        loss, _, _ = contrastive_loss(img, txt, temperature=temperature,
-                                      torch_gather_semantics=False)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        average_gradients(towers.parameters())
-        scheduled_update(state)
-        return mean_across_replicas({"loss": loss.detach()})
+        with span("trainers.step", state.step):
+            towers, opt = state.model, state.optimizer
+            towers.train()
+            img, txt = _embeddings(towers, encoder, images, tokens, retina_cfg, num_fixations,
+                                   generator, fix_yx, dropout_generator)
+            loss, _, _ = contrastive_loss(img, txt, temperature=temperature,
+                                          torch_gather_semantics=False)
+            with span("trainers.backward"):
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+            with span("trainers.update"):
+                average_gradients(towers.parameters())
+                scheduled_update(state)
+            with span("trainers.metrics"):
+                return mean_across_replicas({"loss": loss.detach()})
 
     return step
 
@@ -102,18 +107,20 @@ def make_caption_probe_eval_step(retina_cfg: retina.RetinaConfig, num_fixations:
     def step(state: TrainState, encoder: nn.Module, images: torch.Tensor,
              tokens: torch.Tensor, generator: torch.Generator | None = None,
              fix_yx: torch.Tensor | None = None) -> dict:
-        towers = state.model
-        towers.eval()
-        img, txt = _embeddings(towers, encoder, images, tokens, retina_cfg, num_fixations,
-                               generator, fix_yx)
-        loss, logits_it, labels = contrastive_loss(img, txt, temperature=temperature,
-                                                   torch_gather_semantics=False)
-        _, logits_ti, _ = contrastive_loss(txt, img, temperature=temperature,
-                                           torch_gather_semantics=False)
-        return mean_across_replicas({"loss": loss,
-                                     "i2t_top1": top_k_accuracy(logits_it, labels, 1),
-                                     "i2t_top5": top_k_accuracy(logits_it, labels, 5),
-                                     "t2i_top1": top_k_accuracy(logits_ti, labels, 1),
-                                     "t2i_top5": top_k_accuracy(logits_ti, labels, 5)})
+        with span("trainers.eval_step"):
+            towers = state.model
+            towers.eval()
+            img, txt = _embeddings(towers, encoder, images, tokens, retina_cfg, num_fixations,
+                                   generator, fix_yx)
+            loss, logits_it, labels = contrastive_loss(img, txt, temperature=temperature,
+                                                       torch_gather_semantics=False)
+            _, logits_ti, _ = contrastive_loss(txt, img, temperature=temperature,
+                                               torch_gather_semantics=False)
+            with span("trainers.metrics"):
+                return mean_across_replicas({"loss": loss,
+                                             "i2t_top1": top_k_accuracy(logits_it, labels, 1),
+                                             "i2t_top5": top_k_accuracy(logits_it, labels, 5),
+                                             "t2i_top1": top_k_accuracy(logits_ti, labels, 1),
+                                             "t2i_top5": top_k_accuracy(logits_ti, labels, 5)})
 
     return step

@@ -44,6 +44,7 @@ from multimodal_active_ai_tpu_torch.train.optimizers import get_optimizer
 from multimodal_active_ai_tpu_torch.train.simclr_train import TrainState
 from multimodal_active_ai_tpu_torch.utils.meters import mean_across_replicas
 from multimodal_active_ai_tpu_torch.utils.metrics import top_k_accuracy
+from multimodal_active_ai_tpu_torch.utils.profiling import span
 
 BODY = "backbone.0.body."
 
@@ -105,10 +106,12 @@ def apply_update(state: TrainState, loss: torch.Tensor, clip_max_norm: float) ->
     """One update of the DETR optimizer chain on ``loss``: backward, the
     gradient averaged over ranks, then :func:`update_from_grads`. Returns
     the norm before clipping."""
-    state.model.zero_grad(set_to_none=True)
-    loss.backward()
-    average_gradients(state.model.parameters())
-    return update_from_grads(state, clip_max_norm)
+    with span("trainers.backward"):
+        state.model.zero_grad(set_to_none=True)
+        loss.backward()
+    with span("trainers.update"):
+        average_gradients(state.model.parameters())
+        return update_from_grads(state, clip_max_norm)
 
 
 def update_from_grads(state: TrainState, clip_max_norm: float) -> torch.Tensor:
@@ -116,7 +119,8 @@ def update_from_grads(state: TrainState, clip_max_norm: float) -> torch.Tensor:
     over every gradient, each group's StepLR rate at ``state.count`` (the
     AdamW count the JAX schedule reads), AdamW; ``state.step`` and
     ``state.count`` advance by one. Returns the norm before clipping."""
-    norm = clip_by_global_norm_(state.model.parameters(), clip_max_norm)
+    with span("trainers.clip"):
+        norm = clip_by_global_norm_(state.model.parameters(), clip_max_norm)
     factor = state.schedule(state.count)
     for group in state.optimizer.param_groups:
         group["lr"] = group["base_lr"] * factor
@@ -144,13 +148,14 @@ def collect_glimpse_sequence(images: torch.Tensor, retina_cfg: retina.RetinaConf
     with True on padded positions.
     """
     batch, src = images.shape[0], images.shape[1]
-    if num_fixs is None:
-        num_fixs = torch.randint(min_fixations, num_fixations + 1, (),
-                                 generator=generator, device=generator.device)
-    if saccades is None:
-        glob = torch.rand((num_fixations, batch * world_size(), 2), generator=generator,
-                          device=generator.device)
-        saccades = local_rows(glob, 1).transpose(0, 1)
+    with span("retina.draw"):
+        if num_fixs is None:
+            num_fixs = torch.randint(min_fixations, num_fixations + 1, (),
+                                     generator=generator, device=generator.device)
+        if saccades is None:
+            glob = torch.rand((num_fixations, batch * world_size(), 2), generator=generator,
+                              device=generator.device)
+            saccades = local_rows(glob, 1).transpose(0, 1)
     if retina_cfg.mode == "matmul":
         pyramid = retina.build_pyramid(images, retina_cfg)
         fix_xy = saccades.transpose(0, 1).reshape(num_fixations * batch, 2)
@@ -183,15 +188,18 @@ def make_detr_train_step(criterion, retina_cfg: retina.RetinaConfig,
              generator: torch.Generator | None = None, num_fixs=None,
              saccades: torch.Tensor | None = None,
              dropout_generator: torch.Generator | None = None) -> dict:
-        glimpses, sacc, mask = collect_glimpse_sequence(
-            images, retina_cfg, num_fixations, generator, saccades=saccades,
-            num_fixs=num_fixs)
-        state.model.train()
-        pred = state.model(glimpses, sacc, mask, dropout_generator)["pred_logits"]
-        losses = criterion(pred, labels)
-        norm = apply_update(state, losses["loss_ce"], clip_max_norm)
-        return mean_across_replicas({"loss_ce": losses["loss_ce"].detach(),
-                                     "class_error": losses["class_error"], "grad_norm": norm})
+        with span("trainers.step", state.step):
+            glimpses, sacc, mask = collect_glimpse_sequence(
+                images, retina_cfg, num_fixations, generator, saccades=saccades,
+                num_fixs=num_fixs)
+            state.model.train()
+            pred = state.model(glimpses, sacc, mask, dropout_generator)["pred_logits"]
+            losses = criterion(pred, labels)
+            norm = apply_update(state, losses["loss_ce"], clip_max_norm)
+            with span("trainers.metrics"):
+                return mean_across_replicas({"loss_ce": losses["loss_ce"].detach(),
+                                             "class_error": losses["class_error"],
+                                             "grad_norm": norm})
 
     return step
 
@@ -205,16 +213,18 @@ def make_detr_eval_step(criterion, retina_cfg: retina.RetinaConfig, num_fixation
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
              generator: torch.Generator | None = None, num_fixs=None,
              saccades: torch.Tensor | None = None) -> dict:
-        glimpses, sacc, mask = collect_glimpse_sequence(
-            images, retina_cfg, num_fixations, generator, saccades=saccades,
-            num_fixs=num_fixs)
-        model = state.model
-        model.eval()
-        with torch.no_grad():
-            pred = model(glimpses, sacc, mask)["pred_logits"]
-        logits = pred.mean(dim=1)
-        return mean_across_replicas({"loss_ce": criterion(pred, labels)["loss_ce"],
-                                     "top1": top_k_accuracy(logits, labels, 1),
-                                     "top5": top_k_accuracy(logits, labels, 5)})
+        with span("trainers.eval_step"):
+            glimpses, sacc, mask = collect_glimpse_sequence(
+                images, retina_cfg, num_fixations, generator, saccades=saccades,
+                num_fixs=num_fixs)
+            model = state.model
+            model.eval()
+            with torch.no_grad():
+                pred = model(glimpses, sacc, mask)["pred_logits"]
+            logits = pred.mean(dim=1)
+            with span("trainers.metrics"):
+                return mean_across_replicas({"loss_ce": criterion(pred, labels)["loss_ce"],
+                                             "top1": top_k_accuracy(logits, labels, 1),
+                                             "top5": top_k_accuracy(logits, labels, 5)})
 
     return step

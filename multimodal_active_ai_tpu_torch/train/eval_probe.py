@@ -32,6 +32,7 @@ from multimodal_active_ai_tpu_torch.parallel import average_gradients, local_row
 from multimodal_active_ai_tpu_torch.train.simclr_train import TrainState, scheduled_update
 from multimodal_active_ai_tpu_torch.utils.meters import mean_across_replicas
 from multimodal_active_ai_tpu_torch.utils.metrics import top_k_accuracy
+from multimodal_active_ai_tpu_torch.utils.profiling import span
 
 
 @torch.no_grad()
@@ -49,9 +50,10 @@ def extract_features(encoder: torch.nn.Module, images: torch.Tensor,
     batch, src = images.shape[0], images.shape[1]
     if fix_yx is None:
         # the global batch's view-major draws, this rank's rows of each view
-        glob = torch.rand((num_fixations, batch * world_size(), 2), generator=generator,
-                          device=generator.device)
-        fix_yx = local_rows(glob, 1).reshape(num_fixations * batch, 2)
+        with span("retina.draw"):
+            glob = torch.rand((num_fixations, batch * world_size(), 2), generator=generator,
+                              device=generator.device)
+            fix_yx = local_rows(glob, 1).reshape(num_fixations * batch, 2)
     params = retina.sample_labeled_params(None, num_fixations * batch, src, fix_yx)
     encoder.eval()
     if retina_cfg.mode == "matmul":
@@ -76,16 +78,22 @@ def make_probe_train_step(retina_cfg: retina.RetinaConfig, num_fixations: int):
     def step(state: TrainState, encoder: torch.nn.Module, images: torch.Tensor,
              labels: torch.Tensor, generator: torch.Generator | None = None,
              fix_yx: torch.Tensor | None = None) -> dict:
-        feats = extract_features(encoder, images, retina_cfg, num_fixations,
-                                 generator, fix_yx)
-        probe, opt = state.model, state.optimizer
-        probe.train()
-        loss = F.cross_entropy(probe(feats), labels)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        average_gradients(probe.parameters())
-        scheduled_update(state)
-        return mean_across_replicas({"loss": loss.detach()})
+        with span("trainers.step", state.step):
+            feats = extract_features(encoder, images, retina_cfg, num_fixations,
+                                     generator, fix_yx)
+            probe, opt = state.model, state.optimizer
+            probe.train()
+            logits = probe(feats)
+            with span("trainers.loss"):
+                loss = F.cross_entropy(logits, labels)
+            with span("trainers.backward"):
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+            with span("trainers.update"):
+                average_gradients(probe.parameters())
+                scheduled_update(state)
+            with span("trainers.metrics"):
+                return mean_across_replicas({"loss": loss.detach()})
 
     return step
 
@@ -98,14 +106,18 @@ def make_probe_eval_step(retina_cfg: retina.RetinaConfig, num_fixations: int):
     def step(state: TrainState, encoder: torch.nn.Module, images: torch.Tensor,
              labels: torch.Tensor, generator: torch.Generator | None = None,
              fix_yx: torch.Tensor | None = None) -> dict:
-        feats = extract_features(encoder, images, retina_cfg, num_fixations,
-                                 generator, fix_yx)
-        probe = state.model
-        probe.eval()
-        with torch.no_grad():
-            logits = probe(feats)
-        return mean_across_replicas({"loss": F.cross_entropy(logits, labels),
-                                     "top1": top_k_accuracy(logits, labels, 1),
-                                     "top5": top_k_accuracy(logits, labels, 5)})
+        with span("trainers.eval_step"):
+            feats = extract_features(encoder, images, retina_cfg, num_fixations,
+                                     generator, fix_yx)
+            probe = state.model
+            probe.eval()
+            with torch.no_grad():
+                logits = probe(feats)
+            with span("trainers.loss"):
+                loss = F.cross_entropy(logits, labels)
+            with span("trainers.metrics"):
+                return mean_across_replicas({"loss": loss,
+                                             "top1": top_k_accuracy(logits, labels, 1),
+                                             "top5": top_k_accuracy(logits, labels, 5)})
 
     return step

@@ -50,6 +50,7 @@ from multimodal_active_ai_tpu_torch.train import detr_train
 from multimodal_active_ai_tpu_torch.train.simclr_train import TrainState, scheduled_update
 from multimodal_active_ai_tpu_torch.utils.meters import mean_across_replicas
 from multimodal_active_ai_tpu_torch.utils.metrics import top_k_accuracy
+from multimodal_active_ai_tpu_torch.utils.profiling import span
 
 
 class RolloutResult(NamedTuple):
@@ -77,10 +78,11 @@ def draw_rollout(generator: torch.Generator, host_generator: torch.Generator,
     this rank's ``batch`` rows kept; ``dropout`` is passed on. ``num_fixs``
     follows the reference's ``torch.randint(2, F)`` with its exclusive high
     (``:688,694``), pinned to 2 for F ≤ 3."""
-    num_fixs = int(torch.randint(2, max(num_fixations, 3), (), generator=host_generator))
-    coins = tuple(torch.rand(num_fixations, generator=host_generator).tolist())
-    random_fix = torch.rand((num_fixations, batch * world_size(), 2), generator=generator,
-                            device=generator.device)
+    with span("retina.draw"):
+        num_fixs = int(torch.randint(2, max(num_fixations, 3), (), generator=host_generator))
+        coins = tuple(torch.rand(num_fixations, generator=host_generator).tolist())
+        random_fix = torch.rand((num_fixations, batch * world_size(), 2), generator=generator,
+                                device=generator.device)
     return RolloutDraws(num_fixs, coins, local_rows(random_fix, 1), dropout)
 
 
@@ -131,16 +133,19 @@ def make_rls_train_step(criterion, retina_cfg: retina.RetinaConfig, num_fixation
 
     def step(state: TrainState, dqn: torch.nn.Module, images: torch.Tensor,
              labels: torch.Tensor, epoch: int, draws: RolloutDraws):
-        ro = rollout_fn(dqn, images, draws, epoch)
-        state.model.train()
-        pred = state.model(ro.glimpses, ro.saccades, ro.mask, draws.dropout)["pred_logits"]
-        loss = criterion(pred, labels)["loss_ce"]
-        norm = detr_train.apply_update(state, loss, clip_max_norm)
-        # the reward is the query-mean top-1 correctness of this forward,
-        # before the update (RLS :751-769)
-        reward = (pred.detach().mean(dim=1).argmax(dim=1) == labels).to(torch.float32)
-        metrics = {"loss_ce": loss.detach(), "reward_mean": reward.mean(), "grad_norm": norm}
-        return mean_across_replicas(metrics), ro, reward
+        with span("trainers.step", state.step):
+            ro = rollout_fn(dqn, images, draws, epoch)
+            state.model.train()
+            pred = state.model(ro.glimpses, ro.saccades, ro.mask, draws.dropout)["pred_logits"]
+            loss = criterion(pred, labels)["loss_ce"]
+            norm = detr_train.apply_update(state, loss, clip_max_norm)
+            with span("trainers.metrics"):
+                # the reward is the query-mean top-1 correctness of this
+                # forward, before the update (RLS :751-769)
+                reward = (pred.detach().mean(dim=1).argmax(dim=1) == labels).to(torch.float32)
+                metrics = {"loss_ce": loss.detach(), "reward_mean": reward.mean(),
+                           "grad_norm": norm}
+                return mean_across_replicas(metrics), ro, reward
 
     return step
 
@@ -160,15 +165,17 @@ def make_policy_eval_step(criterion, retina_cfg: retina.RetinaConfig, num_fixati
 
     def step(state: TrainState, dqn: torch.nn.Module, images: torch.Tensor,
              labels: torch.Tensor, draws: RolloutDraws) -> dict:
-        ro = rollout_fn(dqn, images, draws, rollout_epoch)
-        model = state.model
-        model.eval()
-        with torch.no_grad():
-            pred = model(ro.glimpses, ro.saccades, ro.mask)["pred_logits"]
-        logits = pred.mean(dim=1)
-        return mean_across_replicas({"loss_ce": criterion(pred, labels)["loss_ce"],
-                                     "top1": top_k_accuracy(logits, labels, 1),
-                                     "top5": top_k_accuracy(logits, labels, 5)})
+        with span("trainers.eval_step"):
+            ro = rollout_fn(dqn, images, draws, rollout_epoch)
+            model = state.model
+            model.eval()
+            with torch.no_grad():
+                pred = model(ro.glimpses, ro.saccades, ro.mask)["pred_logits"]
+            logits = pred.mean(dim=1)
+            with span("trainers.metrics"):
+                return mean_across_replicas({"loss_ce": criterion(pred, labels)["loss_ce"],
+                                             "top1": top_k_accuracy(logits, labels, 1),
+                                             "top5": top_k_accuracy(logits, labels, 5)})
 
     return step
 
@@ -184,22 +191,27 @@ def make_dqn_update_step(num_of_actions: int, gamma: float):
     and ``count`` advance by one."""
 
     def step(policy_state: TrainState, target: torch.nn.Module, transition) -> torch.Tensor:
-        states, actions, next_states, rewards = transition
-        policy, opt = policy_state.model, policy_state.optimizer
-        policy.train()
-        qx, qy = policy(states)
-        target.eval()
-        with torch.no_grad():
-            tqx, tqy = target(next_states)
-        loss = dqn_bellman_loss(qx, qy, tqx, tqy, actions, rewards, gamma, num_of_actions)
-        opt.zero_grad(set_to_none=True)
-        loss.backward()
-        average_gradients(policy.parameters())
-        grads = [p.grad for p in policy.parameters() if p.grad is not None]
-        torch._foreach_clamp_min_(grads, -1.0)
-        torch._foreach_clamp_max_(grads, 1.0)
-        scheduled_update(policy_state)
-        return mean_across_replicas({"loss": loss.detach()})["loss"]
+        with span("trainers.step", policy_state.step):
+            states, actions, next_states, rewards = transition
+            policy, opt = policy_state.model, policy_state.optimizer
+            policy.train()
+            qx, qy = policy(states)
+            target.eval()
+            with torch.no_grad():
+                tqx, tqy = target(next_states)
+            loss = dqn_bellman_loss(qx, qy, tqx, tqy, actions, rewards, gamma, num_of_actions)
+            with span("trainers.backward"):
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+            with span("trainers.update"):
+                average_gradients(policy.parameters())
+                with span("trainers.clip"):
+                    grads = [p.grad for p in policy.parameters() if p.grad is not None]
+                    torch._foreach_clamp_min_(grads, -1.0)
+                    torch._foreach_clamp_max_(grads, 1.0)
+                scheduled_update(policy_state)
+            with span("trainers.metrics"):
+                return mean_across_replicas({"loss": loss.detach()})["loss"]
 
     return step
 

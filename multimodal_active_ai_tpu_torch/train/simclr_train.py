@@ -29,6 +29,15 @@ the global batch's.
 Randomness comes from an explicit ``torch.Generator``. Tests may pass each
 view's ``AugParams`` and noise tensor (this rank's rows) instead, in view
 order.
+
+Under a profiler each step is a ``trainers.step`` span (its update count
+as the span's argument) holding the retina's, the models' and the
+collectives' spans and, per update, ``trainers.loss``,
+``trainers.backward`` (``zero_grad`` and ``backward``) and
+``trainers.update`` (gradient averaging, the schedule and
+``optimizer.step``), then ``trainers.metrics``; every train step of
+``train/`` uses these names, and an eval step's root is
+``trainers.eval_step`` (``utils/profiling.span``).
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from multimodal_active_ai_tpu_torch.parallel import average_gradients, local_row
 from multimodal_active_ai_tpu_torch.train.optimizers import set_learning_rate
 from multimodal_active_ai_tpu_torch.utils.meters import mean_across_replicas
 from multimodal_active_ai_tpu_torch.utils.metrics import top_k_accuracy
+from multimodal_active_ai_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -91,7 +101,9 @@ def _view_fn(images: torch.Tensor, cfg: retina.RetinaConfig,
         else:
             p = retina.AugParams(*map(local_rows, retina.sample_unlabeled_params(
                 generator, glob, src, cfg)))
-            nz = local_rows(torch.randn(shape, generator=generator, device=generator.device))
+            with span("retina.draw"):
+                nz = local_rows(torch.randn(shape, generator=generator,
+                                            device=generator.device))
         return retina.apply_retina(images, p, cfg, photometric=True,
                                    pyramid=pyramid, generator=generator, noise=nz)
 
@@ -108,23 +120,27 @@ def make_train_step(retina_cfg: retina.RetinaConfig, num_fixations: int,
              generator: torch.Generator | None = None,
              params: Sequence[retina.AugParams] | None = None,
              noise: Sequence[torch.Tensor] | None = None) -> torch.Tensor:
-        view = _view_fn(images, retina_cfg, generator, params, noise)
-        model, opt = state.model, state.optimizer
-        model.train()
-        # first saccade: train-mode forward, BN statistics update, no gradient
-        with torch.no_grad():
-            h1 = model(view(0))
-        losses = []
-        for j in range(1, num_fixations + 1):
-            h2 = model(view(j))
-            loss, _, _ = contrastive_loss(h1, h2, temperature=temperature)
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            average_gradients(model.parameters())
-            scheduled_update(state)
-            losses.append(loss.detach())
-            h1 = h2.detach()
-        return mean_across_replicas({"losses": torch.stack(losses)})["losses"]
+        with span("trainers.step", state.step):
+            view = _view_fn(images, retina_cfg, generator, params, noise)
+            model, opt = state.model, state.optimizer
+            model.train()
+            # first saccade: train-mode forward, BN statistics update, no gradient
+            with torch.no_grad():
+                h1 = model(view(0))
+            losses = []
+            for j in range(1, num_fixations + 1):
+                h2 = model(view(j))
+                loss, _, _ = contrastive_loss(h1, h2, temperature=temperature)
+                with span("trainers.backward"):
+                    opt.zero_grad(set_to_none=True)
+                    loss.backward()
+                with span("trainers.update"):
+                    average_gradients(model.parameters())
+                    scheduled_update(state)
+                losses.append(loss.detach())
+                h1 = h2.detach()
+            with span("trainers.metrics"):
+                return mean_across_replicas({"losses": torch.stack(losses)})["losses"]
 
     return step
 
@@ -138,14 +154,17 @@ def make_eval_step(retina_cfg: retina.RetinaConfig, temperature: float):
              generator: torch.Generator | None = None,
              params: Sequence[retina.AugParams] | None = None,
              noise: Sequence[torch.Tensor] | None = None) -> dict:
-        view = _view_fn(images, retina_cfg, generator, params, noise)
-        model = state.model
-        model.eval()
-        with torch.no_grad():
-            h1 = model(view(0))
-            h2 = model(view(1))
-            loss, logits_ab, labels = contrastive_loss(h1, h2, temperature=temperature)
-        return mean_across_replicas({"loss": loss, "top1": top_k_accuracy(logits_ab, labels, 1),
-                                     "top5": top_k_accuracy(logits_ab, labels, 5)})
+        with span("trainers.eval_step"):
+            view = _view_fn(images, retina_cfg, generator, params, noise)
+            model = state.model
+            model.eval()
+            with torch.no_grad():
+                h1 = model(view(0))
+                h2 = model(view(1))
+                loss, logits_ab, labels = contrastive_loss(h1, h2, temperature=temperature)
+            with span("trainers.metrics"):
+                return mean_across_replicas({"loss": loss,
+                                             "top1": top_k_accuracy(logits_ab, labels, 1),
+                                             "top5": top_k_accuracy(logits_ab, labels, 5)})
 
     return step

@@ -254,11 +254,14 @@ def test_simclr_driver_as_a_two_rank_job(simclr_run):
     """Every rank trains its shard of the global batch of 8 (``Speed``
     counts it) and validates over all 8 rows; rank 0 alone prints and
     writes ``checkpoint.pth.tar``; ``--multislice`` is accepted and prints
-    the nodes × local-ranks layout."""
+    the nodes × local-ranks layout; ``-v`` prints the collectives of a
+    step: NT-Xent's 4 all-gathers, the 20 BatchNorms' sums in 3 forwards
+    and 2 backwards and the metrics' one, 2 gradient all-reduces."""
     dirs, results = simclr_run
     _ran(results, ["distributed: 2 ranks, backend gloo (the CPU)",
                    "multislice: 1 node(s) x 2 local rank(s)",
-                   "global batch 8 (4/rank)", "Epoch: [0][3/4]", "##Contrastive Top-1"])
+                   "global batch 8 (4/rank)", "Epoch: [0][3/4]", "##Contrastive Top-1",
+                   "collectives a step (4 steps): gather 4.0 calls 0.01 MB | sum 101.0 calls "])
     assert "rank 1 of 2 on cpu" in results[1][1]
     _written_by_rank0_alone(dirs, "checkpoint.pth.tar")
     payload = tckpt.load_checkpoint(str(dirs[0] / "checkpoint.pth.tar"))

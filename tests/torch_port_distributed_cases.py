@@ -37,7 +37,7 @@ from multimodal_active_ai_tpu_torch.models.text import TextEncoder
 from multimodal_active_ai_tpu_torch.objectives.ntxent import contrastive_loss
 from multimodal_active_ai_tpu_torch.objectives.set_criterion import SetCriterion
 from multimodal_active_ai_tpu_torch.ops import retina
-from multimodal_active_ai_tpu_torch.parallel import local_rows
+from multimodal_active_ai_tpu_torch.parallel import collectives, local_rows
 from multimodal_active_ai_tpu_torch.rl.replay_memory import Transition
 from multimodal_active_ai_tpu_torch.train import (caption_probe, detr_train, eval_probe,
                                                   optimizers, rls_train, schedule, simclr_train)
@@ -283,9 +283,36 @@ def case_rls(inp: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the collectives' counters and spans
+
+
+def case_spans(inp: dict) -> dict:
+    """One SimCLR train step (ResNet10, ``sync_bn`` at more than one rank,
+    F = 2, float32) under a CPU profiler: the collectives' ``(calls,
+    bytes)`` over the step, the number of ranges of each span name, and
+    the parameters' element count (the gradient all-reduce's payload)."""
+    cfg = retina.RetinaConfig(**GEOM)
+    norm = "sync_bn" if parallel.world_size() > 1 else "bn"
+    model = SimCLRModule(arch="ResNet10", norm_kind=norm, generator=_gen(1))
+    state = TrainState(model, optimizers.get_optimizer("adam", model.parameters()),
+                       lambda _: 1e-3)
+    step = simclr_train.make_train_step(cfg, 2, 0.5)
+    images = local_rows(_images(8, 3))
+    collectives.reset_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step(state, images, _gen(7))
+    spans: dict = {}
+    for e in prof.events():
+        if e.is_user_annotation:
+            spans[e.name] = spans.get(e.name, 0) + 1
+    return {"counts": collectives.counts(), "spans": spans, "line": collectives.stats_line(2),
+            "params": sum(p.numel() for p in model.parameters())}
+
+
 CASES = {"concat": case_concat, "syncbn": case_syncbn, "ntxent": case_ntxent,
          "simclr": case_simclr, "probe": case_probe, "detr": case_detr,
-         "caption": case_caption, "rls": case_rls}
+         "caption": case_caption, "rls": case_rls, "spans": case_spans}
 
 
 def run_local(case: str, inputs: dict | None = None) -> dict:

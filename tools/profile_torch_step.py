@@ -14,8 +14,12 @@ head and the text tower at their defaults, Adam), runs warm-up steps, then
 times ``--steps`` steps with the host clock around
 synchronised steps and traces one more with ``torch.profiler``. Prints the
 step time, the traced step's device busy time as a share of the untraced
-median step, device time by kernel group and the top kernels by device
-time, then one JSON line with the same numbers.
+median step, device time by kernel group, the top kernels by device time
+and, from the same capture, the table of the program's spans
+(``utils/profiling.span_table``: device ms of the kernels each span is the
+innermost of, host ms, host self ms, device idle ms with the span
+innermost) with the step's kernels summed by layer, then one JSON line with
+the same numbers.
 
     python3 tools/profile_torch_step.py --arch ResNet50 -b 128 -f 10
     python3 tools/profile_torch_step.py --stat-fusion pallas --norm-kind bn_fused
@@ -118,7 +122,8 @@ def trace(fn):
     and copies, without the GPU ranges of user annotations, which would
     count time twice), the number of memsets and copies among them (device
     events but no kernel launches; their number moves with the allocator's
-    state from run to run), the device busy ms and the traced host ms."""
+    state from run to run), the device busy ms, the traced host ms and the
+    span table of the same capture (``utils/profiling.span_table``)."""
     with profiling.trace() as prof:
         t0 = time.perf_counter()
         fn()
@@ -127,7 +132,7 @@ def trace(fn):
     kernels = profiling.device_leaf_ops(prof)
     memory_ops = sum(name.startswith(("Memset", "Memcpy")) for name, _ in kernels)
     busy_ms = sum(us for _, us in kernels) / 1e3
-    return kernels, memory_ops, busy_ms, traced_ms
+    return kernels, memory_ops, busy_ms, traced_ms, profiling.span_table(prof)
 
 
 def main(argv=None) -> int:
@@ -271,7 +276,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     waits.clear()
     times = timed(fed_step, args.steps)
-    kernels, memory_ops, busy_ms, traced_ms = trace(fed_step)
+    kernels, memory_ops, busy_ms, traced_ms, spans = trace(fed_step)
     if args.dataset != "synthetic":
         source.close()
         wait_ms = sorted(waits[:-1])[len(waits[:-1]) // 2]
@@ -301,6 +306,12 @@ def main(argv=None) -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]
     for name, (ms, n) in top:
         print(f"  {ms:9.2f} ms  {n:5d}x  {name[:110]}")
+    print("by span: device ms, host ms, host self ms, device idle ms, ranges")
+    for r in spans:
+        print(f"  {r.device_ms:9.2f} {r.host_ms:9.2f} {r.host_self_ms:9.2f} {r.idle_ms:9.2f}  "
+              f"{r.count:5d}x  {r.name}")
+    layers = profiling.span_layers(spans)
+    print("kernels by layer: " + ", ".join(f"{k} {v:.2f} ms" for k, v in layers.items()))
     extra = {}
     if args.dataset != "synthetic":
         extra["input"] = {"dataset": args.dataset, "decoder": reader.decoder,
@@ -311,7 +322,7 @@ def main(argv=None) -> int:
         def update():
             return dqn_update(pstate, target, memory.sample(256))
         upd_times = timed(update, args.steps)
-        upd_kernels, upd_memory_ops, upd_busy, _ = trace(update)
+        upd_kernels, upd_memory_ops, upd_busy, _, _ = trace(update)
         extra["dqn_update"] = {"step_ms": upd_times[len(upd_times) // 2],
                                "step_ms_all": upd_times, "device_busy_ms": upd_busy,
                                "launches": len(upd_kernels) - upd_memory_ops,
@@ -327,7 +338,7 @@ def main(argv=None) -> int:
         "step_ms": median, "step_ms_all": times, "traced_step_ms": traced_ms,
         "device_busy_ms": busy_ms, "busy_share_of_step": busy_ms / median,
         "launches": len(kernels) - memory_ops, "memory_ops": memory_ops,
-        "groups_ms": by_group,
+        "groups_ms": by_group, "spans": [r._asdict() for r in spans], "layers_ms": layers,
         "top": [{"name": n[:200], "ms": ms, "count": c} for n, (ms, c) in top]}))
     return 0
 

@@ -24,6 +24,13 @@ Welford merge give other numbers than the JAX package's. ``bn_fused``
 launches the ``stat_sums`` kernel on one device only, as the JAX package
 does, and raises at world > 1.
 
+:func:`conv_norm_act` is ``relu?(norm(conv(x)) [+ identity])``, the
+ResNet's call of every conv and its norm: for a train-mode ``bn`` (or
+``sync_bn`` at world 1) on a CUDA tensor the norm, add and ReLU are the
+fused kernels of ``ops/bn_act.py``, two launches forward and two backward;
+for every other kind, mode and device the module, then the add and the
+ReLU as separate ops.
+
 ``frozen`` (:class:`FrozenBatchNorm`, the DETR backbone's) holds all four
 tensors as buffers, as the reference's ``FrozenBatchNorm2d`` does, and
 ``group`` (:class:`GroupNormAdapter`) is flax's ``GroupNorm`` (ε = 1e-6,
@@ -35,6 +42,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from multimodal_active_ai_tpu_torch.ops import bn_act
 from multimodal_active_ai_tpu_torch.ops.stat_sums import batch_mean_var, mean_var_from_sums
 from multimodal_active_ai_tpu_torch.parallel import all_reduce_sum_with_grad, world_size
 
@@ -63,19 +71,14 @@ class BatchNorm(nn.Module):
 
     def _batch_stats(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Float32 ``(mean, var)`` of ``x`` over all but the channel dim 1."""
-        xf = x.to(torch.float32)
-        dims = [0] + list(range(2, x.dim()))
-        mean = xf.mean(dim=dims)
-        return mean, torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
+        mean, raw = bn_act.mean_raw_var(x)
+        return mean, torch.clamp_min(raw, 0.0)
 
-    @torch.no_grad()
     def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
         """``r ← momentum·r + (1 - momentum)·batch`` for the batch's
         ``mean`` and biased ``var``."""
-        m = self.momentum
-        self.running_mean.mul_(m).add_(mean, alpha=1 - m)
-        self.running_var.mul_(m).add_(var, alpha=1 - m)
-        self.num_batches_tracked.add_(1)
+        bn_act.update_running(self.running_mean, self.running_var, self.num_batches_tracked,
+                              mean, var, self.momentum)
 
     def normalize(self, x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
                   dtype: torch.dtype) -> torch.Tensor:
@@ -183,6 +186,33 @@ class GroupNormAdapter(nn.Module):
         y = nn.functional.group_norm(x.to(torch.float32), self.num_groups,
                                      self.weight, self.bias, self.eps)
         return y.to(x.dtype)
+
+
+def fusable(norm: nn.Module, x: torch.Tensor, identity: torch.Tensor | None = None) -> bool:
+    """Whether :func:`conv_norm_act` runs ``norm`` as the fused kernels: a
+    train-mode :class:`BatchNorm`, or :class:`SyncBatchNorm` at world 1, on
+    a CUDA bf16 or float32 ``x``, with an ``identity`` (if any) of its type."""
+    kind = type(norm) is BatchNorm or (type(norm) is SyncBatchNorm and world_size() == 1)
+    return (kind and norm.training and x.is_cuda and x.dtype in (torch.bfloat16, torch.float32)
+            and (identity is None or identity.dtype == x.dtype))
+
+
+def conv_norm_act(conv: nn.Module, norm: nn.Module, x: torch.Tensor,
+                  identity: torch.Tensor | None = None, relu: bool = True) -> torch.Tensor:
+    """``relu?(norm(conv(x)) [+ identity])``: ``conv``, then one
+    :func:`~multimodal_active_ai_tpu_torch.ops.bn_act.batch_norm_act` where
+    :func:`fusable`, else ``norm``, the add and the ReLU one after the
+    other, each intermediate freed as soon as the next op has it."""
+    y = conv(x)
+    if fusable(norm, y, identity):
+        return bn_act.batch_norm_act(y, norm.weight, norm.bias, norm.running_mean,
+                                     norm.running_var, norm.num_batches_tracked, norm.momentum,
+                                     norm.eps, identity, relu)
+    out = norm(y)
+    del y
+    if identity is not None:
+        return torch.relu(out + identity) if relu else out + identity
+    return torch.relu(out) if relu else out
 
 
 def make_norm(kind: str):

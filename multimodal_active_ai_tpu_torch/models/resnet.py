@@ -14,6 +14,10 @@ layout (``conv1``, ``bn1``, ``layer{s}.{i}.conv{k}``/``bn{k}``,
 ``downsample.0``/``.1``), so ``state_dict`` is the reference
 ``.pth.tar`` layout.
 
+Every conv and its norm run through :func:`~multimodal_active_ai_tpu_torch.
+models.norm.conv_norm_act` with the residual add and ReLU that follow: on
+the card a train-mode ``bn`` is then the fused kernels of ``ops/bn_act.py``.
+
 ``stat_fusion='pallas'|'gram'`` makes each Bottleneck produce its 1×1
 convs' BatchNorm statistics with the convs themselves
 (:func:`~multimodal_active_ai_tpu_torch.models.conv_bn.conv1x1_bn`, reading
@@ -30,7 +34,7 @@ import torch
 from torch import nn
 
 from multimodal_active_ai_tpu_torch.models.conv_bn import IMPLS, conv1x1_bn
-from multimodal_active_ai_tpu_torch.models.norm import make_norm
+from multimodal_active_ai_tpu_torch.models.norm import conv_norm_act, make_norm
 from multimodal_active_ai_tpu_torch.utils.profiling import span
 
 # variance_scaling(2, fan_out, truncated_normal): flax's stddev correction
@@ -70,16 +74,15 @@ class BasicBlock(nn.Module):
         self.bn1 = norm(planes)
         self.conv2 = _conv(planes, planes, 3, generator=generator)
         self.bn2 = norm(planes)
-        self.relu = nn.ReLU()
         self.downsample = (nn.Sequential(
             _conv(inplanes, planes * self.expansion, 1, stride, generator=generator),
             norm(planes * self.expansion)) if downsample else None)
 
     def forward(self, x):
-        identity = x if self.downsample is None else self.downsample(x)
-        out = self.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        return self.relu(out + identity)
+        identity = (x if self.downsample is None
+                    else conv_norm_act(*self.downsample, x, relu=False))
+        out = conv_norm_act(self.conv1, self.bn1, x)
+        return conv_norm_act(self.conv2, self.bn2, out, identity)
 
 
 class Bottleneck(nn.Module):
@@ -102,7 +105,6 @@ class Bottleneck(nn.Module):
         self.bn2 = norm(width)
         self.conv3 = _conv(width, planes * self.expansion, 1, generator=generator)
         self.bn3 = norm(planes * self.expansion)
-        self.relu = nn.ReLU()
         self.downsample = (nn.Sequential(
             _conv(inplanes, planes * self.expansion, 1, stride, generator=generator),
             norm(planes * self.expansion)) if downsample else None)
@@ -110,16 +112,16 @@ class Bottleneck(nn.Module):
     def forward(self, x):
         fusion = self.stat_fusion
         if not fusion:
-            identity = x if self.downsample is None else self.downsample(x)
-            out = self.relu(self.bn1(self.conv1(x)))
-            out = self.relu(self.bn2(self.conv2(out)))
-            out = self.bn3(self.conv3(out))
-            return self.relu(out + identity)
+            identity = (x if self.downsample is None
+                        else conv_norm_act(*self.downsample, x, relu=False))
+            out = conv_norm_act(self.conv1, self.bn1, x)
+            out = conv_norm_act(self.conv2, self.bn2, out)
+            return conv_norm_act(self.conv3, self.bn3, out, identity)
         identity = x if self.downsample is None else conv1x1_bn(x, *self.downsample, fusion)
-        out = self.relu(conv1x1_bn(x, self.conv1, self.bn1, fusion))
-        out = self.relu(self.bn2(self.conv2(out)))
+        out = torch.relu(conv1x1_bn(x, self.conv1, self.bn1, fusion))
+        out = torch.relu(self.bn2(self.conv2(out)))
         out = conv1x1_bn(out, self.conv3, self.bn3, fusion)
-        return self.relu(out + identity)
+        return torch.relu(out + identity)
 
 
 class ResNet(nn.Module):
@@ -140,7 +142,6 @@ class ResNet(nn.Module):
         norm = make_norm(norm_kind)
         self.conv1 = _conv(3 * crop_measures, 64, 7, generator=generator)
         self.bn1 = norm(64)
-        self.relu = nn.ReLU()
         inplanes = 64
         for stage, (planes, blocks, stride) in enumerate(
                 zip((64, 128, 256, 512), layers, (1, 2, 2, 2))):
@@ -158,7 +159,7 @@ class ResNet(nn.Module):
         with span("models.encoder"):
             x = x.permute(0, 3, 1, 2)             # NHWC memory, NCHW view
             with span("models.encoder.stem"):
-                x = self.relu(self.bn1(self.conv1(x)))
+                x = conv_norm_act(self.conv1, self.bn1, x)
             for stage, name in _STAGES:
                 with span(name):
                     x = getattr(self, stage)(x)

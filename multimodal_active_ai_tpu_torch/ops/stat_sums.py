@@ -50,18 +50,20 @@ class StatSumsPlan(NamedTuple):
         return self.row_blocks * self.tiles_c
 
 
-def stat_sums_plan(n: int, c: int, element_size: int, vec: bool, sms: int) -> StatSumsPlan:
+def stat_sums_plan(n: int, c: int, element_size: int, vec: bool, sms: int, *,
+                   threads: int = THREADS, blocks_per_sm: int = BLOCKS_PER_SM) -> StatSumsPlan:
     """The grid for ``n`` rows of ``c`` channels: at most one wave
-    (``sms × BLOCKS_PER_SM`` blocks), each row run at least one pass of the
-    block's row slots, no block empty. ``cols`` is a power of two, so the
-    lanes of a warp that share channels are a shuffle pattern. Pure Python,
-    so CPU tests hold it."""
+    (``sms × blocks_per_sm`` blocks of ``threads``), each row run at least
+    one pass of the block's row slots, no block empty. ``cols`` is a power
+    of two, so the lanes of a warp that share channels are a shuffle
+    pattern. Pure Python, so CPU tests hold it; ``ops/bn_act.py`` plans its
+    kernels with it at other ``threads`` and ``blocks_per_sm``."""
     v = 16 // element_size if vec else 1
     vcols = c // v
     cols = 1 << (min(vcols, TILE_C // v).bit_length() - 1)   # a power of two
-    slots = THREADS // cols
+    slots = threads // cols
     tiles_c = -(-vcols // cols)
-    row_blocks = max(1, min(BLOCKS_PER_SM * sms // tiles_c, -(-n // slots)))
+    row_blocks = max(1, min(blocks_per_sm * sms // tiles_c, -(-n // slots)))
     rows_per_block = -(-n // (row_blocks * slots)) * slots
     row_blocks = -(-n // rows_per_block)
     return StatSumsPlan(vec, v, cols, tiles_c, row_blocks, rows_per_block)

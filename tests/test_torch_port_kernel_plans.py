@@ -2,7 +2,8 @@
 
 ``conv1x1_plan`` (B3, ``ops/conv1x1_stats.py``), ``stat_sums_plan`` (B2,
 ``ops/stat_sums.py``), ``glimpse_sample_plan`` and ``hat_sample_plan`` (B1
-and B4, ``ops/glimpse_sample.py``) are pure Python: they choose the tiles,
+and B4, ``ops/glimpse_sample.py``) and ``bn_act_plan`` (the fused
+BatchNorm + ReLU, ``ops/bn_act.py``) are pure Python: they choose the tiles,
 the ring, the grid, the route and the static schedule that the CUDA
 kernels then check and follow. The kernels themselves run only on the card
 (``chip_smoke.py``); here the plans are held at the shapes the main path
@@ -11,7 +12,13 @@ gives them, on an H100's 132 SMs.
 
 import pytest
 
-from chip_smoke import resnet50_fused_shapes
+import torch
+
+from chip_smoke import resnet50_fused_shapes, resnet_bn_shapes
+from multimodal_active_ai_tpu_torch.models.norm import BatchNorm
+from multimodal_active_ai_tpu_torch.models.resnet import build_encoder
+from multimodal_active_ai_tpu_torch.models.resnet1d import resnet1d_18
+from multimodal_active_ai_tpu_torch.ops import bn_act as ba
 from multimodal_active_ai_tpu_torch.ops import conv1x1_stats as cs
 from multimodal_active_ai_tpu_torch.ops import glimpse_sample as gs
 from multimodal_active_ai_tpu_torch.ops import stat_sums as ss
@@ -23,6 +30,14 @@ TAILS = [(96, 24, 40), (64, 16, 64), (100, 12, 7), (1000, 64, 200)]
 B3_SHAPES = sorted(B3_B128) + sorted(B3_B1) + TAILS
 WGMMA_SHAPES = [(m, k, n) for m, k, n in B3_SHAPES if k % 8 == 0 and n % 8 == 0]
 B2_SHAPES = sorted(B2_B128) + sorted(B2_B1) + [(40, 24), (1001, 64), (333, 3), (7, 64)]
+BN_R50_B256 = resnet_bn_shapes("ResNet50", 256)
+# the other callers' BatchNorms: ResNet-18 (the DQN, the loss-curve and
+# convergence cases) and ResNet-10 (tests, the rehearsal), and a 1-D
+# ResNet's (B, C, L) read as (B·L, C)
+BN_1D = [(4 * 5000, 64), (4 * 2500, 128), (4 * 1250, 256), (4 * 625, 512)]
+BN_SHAPES = (sorted(BN_R50_B256) + sorted(resnet_bn_shapes("ResNet18", 128))
+             + sorted(resnet_bn_shapes("ResNet10", 8)) + BN_1D
+             + [(40, 24), (1001, 64), (333, 3), (7, 64), (1, 2048)])
 
 
 def test_main_path_shapes():
@@ -105,6 +120,58 @@ def test_stat_sums_plan_covers_rows_once_in_one_wave(nc, element_size, vec):
         for r in rows:
             covered[r] += 1
     assert covered == [1] * n
+
+
+def _norm_inputs(model, x):
+    """The ``(rows, C)`` each BatchNorm of ``model`` sees in one train-mode
+    forward of ``x`` (on the meta device: shapes only)."""
+    seen = []
+    hooks = [m.register_forward_pre_hook(lambda m, a: seen.append(
+        (a[0].numel() // a[0].shape[1], a[0].shape[1])))
+        for m in model.modules() if isinstance(m, BatchNorm)]
+    model(x)
+    for h in hooks:
+        h.remove()
+    return sorted(seen)
+
+
+@pytest.mark.parametrize("arch, batch", [("ResNet50", 256), ("ResNet18", 128), ("ResNet10", 8)])
+def test_resnet_bn_shapes_are_the_models(arch, batch):
+    with torch.device("meta"):
+        model = build_encoder(arch)
+        x = torch.empty(batch, 30, 30, 12)
+    assert sorted(resnet_bn_shapes(arch, batch).elements()) == _norm_inputs(model, x)
+    assert sum(BN_R50_B256.values()) == 53 and len(BN_R50_B256) == 11
+
+
+def test_resnet1d_bn_shapes():
+    with torch.device("meta"):
+        model = resnet1d_18(length=5000)
+        x = torch.empty(4, 5000, 1)
+    assert set(BN_1D) <= set(_norm_inputs(model, x))
+
+
+@pytest.mark.parametrize("nc", BN_SHAPES, ids=str)
+@pytest.mark.parametrize("element_size, vec", [(2, True), (4, True), (2, False)])
+def test_bn_act_plan_covers_rows_once_in_one_wave(nc, element_size, vec):
+    """One plan for the four kernels: tiles of at most 64 channels of
+    16-byte vectors, at most two blocks of 512 threads an SM (or one block
+    a channel tile), each row in exactly one block, no block empty."""
+    n, c = nc
+    vec = vec and c % (16 // element_size) == 0
+    plan = ba.bn_act_plan(n, c, element_size, vec, SMS)
+    assert plan.v == (16 // element_size if vec else 1)
+    assert plan.cols & (plan.cols - 1) == 0 and plan.cols * plan.v <= ba.TILE_C
+    assert ba.THREADS % plan.cols == 0 and (plan.cols <= 32 or plan.cols == 64)
+    slots = ba.THREADS // plan.cols
+    assert plan.rows_per_block % slots == 0
+    assert plan.tiles_c * plan.cols * plan.v >= c > (plan.tiles_c - 1) * plan.cols * plan.v
+    assert plan.blocks <= max(SMS * ba.BLOCKS_PER_SM, plan.tiles_c)
+    assert plan.row_blocks * plan.rows_per_block >= n > (plan.row_blocks - 1) * plan.rows_per_block
+    if (n, c) in BN_R50_B256 and vec:
+        # the main path: a full wave of blocks, each with whole passes
+        assert plan.blocks >= SMS
+        assert plan.cols * plan.v == min(c, ba.TILE_C)
 
 
 # B1: the main path's plan (B=128, L=4, P=900), a 3-view plan, P=899 (the

@@ -85,6 +85,7 @@ GROUPS = [
     ("glimpse_sample", "retina sampler (B1)"),
     ("stat_sums", "BN statistics kernel (B2)"),
     ("conv1x1_stats", "1x1 conv + statistics kernel (B3)"),
+    ("bn_act_", "fused BatchNorm + ReLU kernels (bn_act)"),
     ("conv", "convolution"), ("gemm", "matmul/conv gemm"), ("sm90_", "matmul/conv gemm"),
     ("cutlass", "matmul/conv gemm"), ("cudnn", "convolution"), ("nchw", "convolution"),
     ("nhwc", "convolution"), ("wgrad", "convolution"), ("dgrad", "convolution"),

@@ -216,6 +216,21 @@ result line):
    ResNet-50 b=128 shapes, the ``bn`` form and B2 timed (ms, GB/s, share of
    3.35 TB/s), B2's launches counted. Phase 3h also runs
    ``tools/torch_multiprocess_check.py`` as a 2-rank job (3h(f)).
+3o. The generative caption step (``train/caption_lm.py``) at the shapes of
+   the benchmark's Kimi-VL-A3B cell: Kimi-VL-A3B's language model (27
+   layers, MLA, 26 MoE layers holding experts 0-7 of 64, vocabulary slice
+   20,480) behind the projector over a frozen ResNet-50, b=16, F=128, 64
+   text positions. (a) Which SDPA backends take MLA's query and key of 192
+   against a value of 128 (forward and backward, bf16), and the kernels
+   the default picks. (b) One MoE layer at the cell's 9,216 rows: the
+   grouped product against the loop over the 8 held experts, forward and
+   backward, within bf16's rounding, each timed. (c) Before any update,
+   the share of top-6 choices, per MoE layer, that differ between the
+   bf16 program and the float32 reference (``reference/mla_moe.py``) on
+   the same weights and batch, with the routers' correction bias at 0 and
+   balanced on the batch (as the cell's seed weights are). (d) Train steps: finite losses, the MoE
+   counters (26 calls a step), the median step, peak memory. ``python3
+   chip_smoke.py --caption-lm`` runs this phase alone.
 4. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX. It exits non-zero without CUDA, and when the
@@ -2197,7 +2212,7 @@ DOWNSTREAM = {   # driver module, config class, checkpoints rank 0 writes, B1 a 
     "detr_image_classification_rls": ("RLSConfig", ["detr_classifier_checkpoint.pth.tar",
                                                     "dqn_checkpoint.pth.tar"],
                                       2 * PROBE_FIXATIONS + 2 * PROBE_FIXATIONS),
-    "coco_captions_probe": ("CaptionProbeConfig", ["caption_probe_checkpoint.pth.tar"], 2 + 2),
+    "coco_captions_probe": ("CaptionLMConfig", ["caption_probe_checkpoint.pth.tar"], 2 + 2),
 }
 
 
@@ -4001,6 +4016,221 @@ def run_learning_checks(torch, counters, workdir, device_name) -> dict:
     return out
 
 
+CAP_B, CAP_F, CAP_LT, CAP_VOCAB, CAP_HELD = 16, 128, 64, 20480, (0, 8)
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _balance_routers(torch, model, maps, tokens, iters: int = 400) -> None:
+    """Each router's correction bias set, in layer order, by the sign rule
+    run on its own scores until its loads over the batch are even (as the
+    benchmark's caption cell sets its seed's bias)."""
+    from multimodal_active_ai_tpu_torch.models.moe import Router
+    from multimodal_active_ai_tpu_torch.reference.mla_moe import balanced_bias
+
+    def solve(router, args):
+        router.e_score_correction_bias.copy_(balanced_bias(
+            torch.sigmoid(args[0].float() @ router.weight.float().T), router.top_k, iters))
+
+    hooks = [m.register_forward_pre_hook(solve) for m in model.modules()
+             if isinstance(m, Router)]
+    with torch.no_grad():
+        model(maps, tokens)
+    for h in hooks:
+        h.remove()
+
+
+def _routing_flips(torch, ref, model, keys, maps, tokens, seq):
+    """Per MoE layer, the share of top-k choices of the bf16 program that
+    the float32 reference on the same weights does not make, and the
+    logits' relative gap."""
+    dev, b = maps.device, tokens.shape[0]
+    with torch.no_grad():
+        logits, routing = model(maps, tokens)
+        chosen = [r.chosen for r in routing]
+        del routing
+        with torch.device(dev):
+            plain = ref.GlimpseVLM({**keys, "channels": 2048})
+        plain.load_state_dict(model.state_dict())
+        ref.exact_products()
+        mf = maps.float().reshape(CAP_F, b, *maps.shape[1:])
+        flips = torch.zeros(len(chosen), device=dev)
+        want = []
+        for i in range(0, b, 2):
+            out, rr = plain(mf[:, i:i + 2].reshape(-1, *maps.shape[1:]), tokens[i:i + 2])
+            want.append(out)
+            for j, (c, (_, idx, _)) in enumerate(zip(chosen, rr)):
+                mine = c.view(b, seq, -1)[i:i + 2].reshape(-1, c.shape[1])
+                same = (mine[:, :, None] == idx[:, None, :]).any(-1).float().mean()
+                flips[j] += (1.0 - same) * 2 / b
+        gap = _rel_l2(logits, torch.cat(want))
+    del plain, want, mf
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [round(float(f), 4) for f in flips], gap
+
+
+def run_caption_lm_path(torch, device_name) -> dict:
+    """Phase 3o (see the module docstring)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from multimodal_active_ai_tpu_torch.models import moe
+    from multimodal_active_ai_tpu_torch.models.glimpse_vlm import GlimpseVLM, init_weights_
+    from multimodal_active_ai_tpu_torch.models.moe_lm import KIMI_VL_A3B, MoELMConfig
+    from multimodal_active_ai_tpu_torch.models.simclr import SimCLRModule
+    from multimodal_active_ai_tpu_torch.ops import retina
+    from multimodal_active_ai_tpu_torch.reference import mla_moe as ref
+    from multimodal_active_ai_tpu_torch.train import caption_lm
+    from multimodal_active_ai_tpu_torch.train.eval_probe import frozen_feature_maps
+    from multimodal_active_ai_tpu_torch.train.simclr_train import TrainState
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(dev).manual_seed(23)
+    seq = CAP_F * 4 + CAP_LT
+    print(f"caption lm: torch {torch.__version__}, torch._grouped_mm "
+          f"{hasattr(torch, '_grouped_mm')}, capability {torch.cuda.get_device_capability()}")
+
+    # (a) SDPA backends at MLA's head sizes
+    q = torch.randn(CAP_B, 16, seq, 192, device=dev, dtype=bf16, generator=gen)
+    k = torch.randn(CAP_B, 16, seq, 192, device=dev, dtype=bf16, generator=gen)
+    v = torch.randn(CAP_B, 16, seq, 128, device=dev, dtype=bf16, generator=gen)
+    taken = {}
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        try:
+            with sdpa_kernel([be]):
+                out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+                out.float().sum().backward()
+            torch.cuda.synchronize()
+            taken[be.name] = True
+        except RuntimeError as e:
+            taken[be.name] = str(e).splitlines()[0][:120]
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(qq, kk, vv, is_causal=True).float().sum().backward()
+        torch.cuda.synchronize()
+    names = sorted({e.name[:90] for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and any(f in e.name.lower() for f in ("fmha", "flash", "attention", "cudnn",
+                                                          "sdpa", "attn"))})
+    print(f"caption lm (a): SDPA backends at (b={CAP_B}, h=16, L={seq}, d_qk=192, d_v=128) "
+          f"bf16 forward+backward: {taken}; the default runs {names} [{device_name}]")
+    del q, k, v, qq, kk, vv, prof
+
+    # (b) one MoE layer: the grouped product against the loop
+    layer = moe.MoE(2048, 64, 6, 1408, 2, 2.446, range(*CAP_HELD)).to(dev)
+    with torch.no_grad():
+        for t in (layer.experts.gate_up_proj, layer.experts.down_proj,
+                  layer.shared_experts.gate_proj.weight, layer.shared_experts.up_proj.weight,
+                  layer.shared_experts.down_proj.weight):
+            t.normal_(0.0, 0.02, generator=gen)
+        layer.gate.weight.normal_(0.0, (3 * 2048) ** -0.5, generator=gen)
+    x = torch.randn(1, CAP_B * seq, 2048, device=dev, generator=gen)
+    cot = torch.randn(1, CAP_B * seq, 2048, device=dev, generator=gen)
+    got, ms = {}, {}
+    for grouped in (True, False):
+        layer.grouped = grouped
+        xg = x.clone().requires_grad_()
+        for rep in range(4):
+            layer.zero_grad(set_to_none=True)
+            xg.grad = None
+            if rep == 1:
+                start = torch.cuda.Event(enable_timing=True)
+                start.record()
+            with torch.autocast("cuda", dtype=bf16):
+                out, routing = layer(xg)
+            (out.float() * cot).sum().backward()
+        stop = torch.cuda.Event(enable_timing=True)
+        stop.record()
+        torch.cuda.synchronize()
+        ms[grouped] = start.elapsed_time(stop) / 3
+        got[grouped] = [out, xg.grad, layer.experts.gate_up_proj.grad,
+                        layer.experts.down_proj.grad, layer.gate.weight.grad]
+    gaps = [_rel_l2(a, b) for a, b in zip(got[True], got[False])]
+    held_rows = int(routing.load[CAP_HELD[0]:CAP_HELD[1]].sum())
+    layer.grouped = True
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with torch.autocast("cuda", dtype=bf16):
+            out, routing = layer(x)
+        (out.float() * cot).sum().backward()
+        torch.cuda.synchronize()
+    print("caption lm (b): the grouped path's product kernels: " + ", ".join(sorted(
+        {e.name[:80] for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+         and any(f in e.name.lower() for f in ("gemm", "grouped", "cutlass", "nvjet", "sm90"))})))
+    del prof
+    print(f"caption lm (b): MoE layer, {CAP_B * seq} rows, {held_rows} routed to the 8 held "
+          f"experts: grouped vs loop relative L2 (out, dx, d gate_up, d down, d router) "
+          f"{[f'{g:.2e}' for g in gaps]}; forward+backward grouped {ms[True]:.2f} ms, loop "
+          f"{ms[False]:.2f} ms [{device_name}]")
+    if max(gaps) > 2e-2:
+        fail(f"the grouped product differs from the loop over the held experts: {gaps}")
+    del layer, x, cot, got, out, routing, xg
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the model at the cell's shapes; top-6 flips between bf16 and float32
+    rcfg = retina.RetinaConfig(canvas_size=CANVAS)
+    encoder = SimCLRModule(arch=ARCH, norm_kind="frozen", dtype=bf16,
+                           generator=torch.Generator().manual_seed(5)).to(dev)
+    encoder = encoder.to(memory_format=torch.channels_last).eval()
+    keys = {**vars(KIMI_VL_A3B), "vocab_size": CAP_VOCAB, "held": CAP_HELD}
+    with torch.device(dev):
+        model = GlimpseVLM(MoELMConfig.from_dict(keys), channels=2048, dtype=bf16)
+    init_weights_(model, gen)
+    images = torch.randint(0, 256, (CAP_B, CANVAS, CANVAS, 3), dtype=torch.uint8, device=dev,
+                           generator=gen)
+    length = torch.randint(8, CAP_LT + 1, (CAP_B,), device=dev, generator=gen)
+    tokens = torch.randint(1, CAP_VOCAB, (CAP_B, CAP_LT), device=dev, generator=gen)
+    tokens = torch.where(torch.arange(CAP_LT, device=dev) < length[:, None], tokens, 0)
+    fix = torch.rand(CAP_F * CAP_B, 2, device=dev, generator=gen)
+    with torch.no_grad():
+        maps = frozen_feature_maps(encoder, images, rcfg, CAP_F, fix_yx=fix)
+    flips = {}
+    for bias in ("zero", "balanced"):
+        if bias == "balanced":
+            _balance_routers(torch, model, maps, tokens)
+        flips[bias], logit_gap = _routing_flips(torch, ref, model, keys, maps, tokens, seq)
+        print(f"caption lm (c): top-6 choices that differ, bf16 program vs float32 reference, "
+              f"router bias {bias}, per MoE layer 1-26: {flips[bias]}; logits relative L2 "
+              f"{logit_gap:.3e} [{device_name}]")
+
+    # (d) train steps
+    opt = caption_lm.make_caption_lm_optimizer(model, 0.1)
+    state = TrainState(model, opt, lambda _: 2e-5)
+    step = caption_lm.make_caption_lm_train_step(rcfg, CAP_F, 0, 1.0, 1e-4, 1e-3)
+    torch.cuda.reset_peak_memory_stats()
+    moe.reset_counts()
+    times, losses = [], []
+    for i in range(6):
+        fix = torch.rand(CAP_F * CAP_B, 2, device=dev, generator=gen)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        m = step(state, encoder, images, tokens, fix_yx=fix)
+        b.record()
+        losses.append(m["loss"])
+        times.append((a, b))
+    torch.cuda.synchronize()
+    losses = [float(x) for x in losses]
+    step_ms = sorted(a.elapsed_time(b) for a, b in times[2:])
+    counts = moe.counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"caption lm (d): 6 steps (b={CAP_B}, F={CAP_F}, {CAP_LT} text positions, "
+          f"{CAP_B * seq} tokens), losses {[round(x, 4) for x in losses]}, MoE counters "
+          f"{counts}, median step {step_ms[len(step_ms) // 2]:.1f} ms "
+          f"({CAP_B / step_ms[len(step_ms) // 2] * 1e3:.2f} img/s), peak memory {peak:.2f} GiB "
+          f"[{device_name}]")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"the caption step's losses are not finite: {losses}")
+    if counts["calls"] != 26 * 6:
+        fail(f"the MoE layers ran {counts['calls']} times in 6 steps, not {26 * 6}")
+    return {"flips": flips, "step_ms": step_ms, "peak_gib": peak}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PACKAGE)):
         fail(f"{PACKAGE}/ is not beside chip_smoke.py; run it from the repository root")
@@ -4113,6 +4343,10 @@ def main() -> int:
         print(f"phase 3n (the learning run's part-1 and part-2 legs cut in epochs, the cue "
               f"probe, the RLS cue diagnostic, the BatchNorm statistics bench): "
               f"{time.perf_counter() - t3n:.1f} s [{device_name}]")
+        t3o = time.perf_counter()
+        run_caption_lm_path(torch, device_name)
+        print(f"phase 3o (the generative caption step at the Kimi-VL-A3B cell's shapes): "
+              f"{time.perf_counter() - t3o:.1f} s [{device_name}]")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     rows["conv1x1_stats"]["launches"] = fused["conv1x1_stats"]
@@ -4202,7 +4436,26 @@ def main() -> int:
     return 0
 
 
+def caption_lm_only() -> int:
+    """``--caption-lm``: phase 3o alone."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("CUDA is not available")
+    device_name = gpu_name_and_power()
+    print(f"gpu (name, power limit): {device_name}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    run_caption_lm_path(torch, device_name)
+    print(f"phase 3o: {time.perf_counter() - t0:.1f} s [{device_name}]")
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-job"]:
         sys.exit(rank_job(sys.argv[2], sys.argv[3], sys.argv[4:]))
+    if sys.argv[1:2] == ["--caption-lm"]:
+        sys.exit(caption_lm_only())
     sys.exit(main())

@@ -43,6 +43,18 @@ with a warning when the captions would build another. ``-v`` prints the
 loader's line after each train epoch. As in the JAX driver, the eval loop
 reads the train images.
 
+``--objective generative`` trains a captioner instead
+(``train/caption_lm.py``): the frozen encoder's glimpse maps go through a
+projector into image tokens, and Kimi-VL-A3B's language model (MLA, a
+mixture of experts holding routed experts 0-7; its widths, or
+``--lm-config``'s JSON of ``config.json`` keys and ``held`` over them)
+learns the caption tokens that follow them, over a ``--vocab-size``
+vocabulary, with AdamW at ``--lr``, the balance loss and the router bias
+rule (``train/caption_lm.py``'s published values). It runs under bf16 autocast on a card and in float32 on the CPU, reports the
+caption loss and next-token top-1 (``##Caption loss``, ``##Next-token
+Top-1``) and writes ``caption_lm_checkpoint.pth.tar``, which ``--resume``
+takes back.
+
 On N GPUs it runs as N processes, one a card (``python -m
 torch.distributed.run --nproc-per-node N -m ...``, or the JAX package's
 ``MAAI_*`` variables; ``parallel/distributed.py``): ``-b`` is the per-rank
@@ -63,7 +75,7 @@ from time import time
 import torch
 
 from multimodal_active_ai_tpu_torch import parallel
-from multimodal_active_ai_tpu_torch.config import CaptionProbeConfig, parse_into
+from multimodal_active_ai_tpu_torch.config import CaptionLMConfig, parse_into
 from multimodal_active_ai_tpu_torch.contrastive_learning import (
     DROPOUT_STREAM, generator, print_loader_stats)
 from multimodal_active_ai_tpu_torch.data.loader import HostLoader
@@ -71,18 +83,21 @@ from multimodal_active_ai_tpu_torch.data.prefetch import device_batches
 from multimodal_active_ai_tpu_torch.data.readers import list_coco_images, list_image_folder
 from multimodal_active_ai_tpu_torch.data.synthetic import SyntheticReader
 from multimodal_active_ai_tpu_torch.device import synchronize
+from multimodal_active_ai_tpu_torch.models.glimpse_vlm import GlimpseVLM, init_weights_
+from multimodal_active_ai_tpu_torch.models.moe_lm import KIMI_VL_A3B, MoELMConfig
 from multimodal_active_ai_tpu_torch.models.resnet import encoder_feature_dim
 from multimodal_active_ai_tpu_torch.models.simclr import SimCLRModule
-from multimodal_active_ai_tpu_torch.models.text import TextEncoder, Vocabulary, tokenize
+from multimodal_active_ai_tpu_torch.models.text import PAD_ID, TextEncoder, Vocabulary, tokenize
 from multimodal_active_ai_tpu_torch.ops import retina
 from multimodal_active_ai_tpu_torch.parallel import print0
 from multimodal_active_ai_tpu_torch.representation_evaluation import load_pretrained_encoder
-from multimodal_active_ai_tpu_torch.train import caption_probe, optimizers
+from multimodal_active_ai_tpu_torch.train import caption_lm, caption_probe, optimizers
 from multimodal_active_ai_tpu_torch.train.simclr_train import TrainState
 from multimodal_active_ai_tpu_torch.utils import checkpoint as ckpt
 from multimodal_active_ai_tpu_torch.utils.meters import AverageMeter
 
 METRICS = ("loss", "i2t_top1", "i2t_top5", "t2i_top1", "t2i_top5")
+LM_METRICS = ("caption_loss", "top1")
 
 
 def caption_tokens(labels: torch.Tensor, vocab_size: int, max_len: int) -> torch.Tensor:
@@ -188,10 +203,29 @@ def restore_towers(towers: caption_probe.CaptionTowers, payload: dict, num_fixat
     towers.load_state_dict(sd)
 
 
+def build_caption_lm(cfg, vocab_size: int, device: torch.device) -> GlimpseVLM:
+    """The generative objective's model: Kimi-VL-A3B's language model,
+    routed experts 0-7 held, with ``--lm-config``'s keys over both,
+    ``vocab_size`` rows of vocabulary, behind a projector from the ``-a``
+    encoder's maps; its weights from ``--seed``, made on ``device``. It
+    runs under bf16 autocast on a card and in float32 on the CPU."""
+    keys = {}
+    if cfg.lm_config:
+        with open(cfg.lm_config) as f:
+            keys = json.load(f)
+    lm = MoELMConfig.from_dict({**vars(KIMI_VL_A3B), "held": (0, 8), **keys,
+                                "vocab_size": vocab_size})
+    with torch.device(device):
+        model = GlimpseVLM(lm, channels=encoder_feature_dim(cfg.arch),
+                           dtype=torch.bfloat16 if device.type == "cuda" else torch.float32)
+    return init_weights_(model, generator(device, cfg.seed, 50_000))
+
+
 def main(argv=None):
-    """Returns the trained ``TrainState`` (``model`` the towers) and the
-    run's vocabulary (None on synthetic data)."""
-    cfg = parse_into(CaptionProbeConfig, argv, prog="COCO_Captions_Probe")
+    """Returns the trained ``TrainState`` (``model`` the towers, or the
+    language model with ``--objective generative``) and the run's
+    vocabulary (None on synthetic data)."""
+    cfg = parse_into(CaptionLMConfig, argv, prog="COCO_Captions_Probe")
     device = parallel.initialize_distributed(cfg.device)
     try:
         return train(cfg, device)
@@ -249,23 +283,36 @@ def train(cfg, device: torch.device):
         print0(f"caption vocabulary: {vocab.size} entries (cap {cfg.vocab_size}) over "
                f"{len(captions)} captions")
 
-    feat_dim = encoder_feature_dim(cfg.arch) * 16 * cfg.num_fixations
-    seeded = torch.Generator().manual_seed(cfg.seed + 1)
-    towers = caption_probe.CaptionTowers(
-        feat_dim, TextEncoder(vocab_size=text_vocab_size, out_dim=128, generator=seeded),
-        generator=seeded).to(device)
-    state = TrainState(towers, optimizers.get_optimizer("adam", towers.parameters()),
-                       lambda _: cfg.lr)
-    if payload is not None:
-        restore_towers(towers, payload, cfg.num_fixations, text_vocab_size)
-        print0(f"=> resumed caption probe from '{cfg.resume}' (epoch {int(payload['epoch'])})")
-
-    train_step = caption_probe.make_caption_probe_train_step(
-        retina_cfg, cfg.num_fixations, cfg.temperature)
-    eval_step = caption_probe.make_caption_probe_eval_step(
-        retina_cfg, cfg.num_fixations, cfg.temperature)
-    ckpt_file = os.path.join(cfg.checkpoint_dir, "caption_probe_checkpoint.pth.tar")
-    best_file = os.path.join(cfg.checkpoint_dir, "caption_probe_best.pth.tar")
+    generative = cfg.objective == "generative"
+    if generative:
+        model = build_caption_lm(cfg, text_vocab_size, device)
+        state = TrainState(model, caption_lm.make_caption_lm_optimizer(model), lambda _: cfg.lr)
+        if payload is not None:
+            model.load_state_dict(payload["state_dict"])
+            print0(f"=> resumed caption model from '{cfg.resume}' (epoch {int(payload['epoch'])})")
+        train_step = caption_lm.make_caption_lm_train_step(retina_cfg, cfg.num_fixations,
+                                                           PAD_ID)
+        eval_step = caption_lm.make_caption_lm_eval_step(retina_cfg, cfg.num_fixations, PAD_ID)
+        metrics, name = LM_METRICS, "caption_lm"
+    else:
+        feat_dim = encoder_feature_dim(cfg.arch) * 16 * cfg.num_fixations
+        seeded = torch.Generator().manual_seed(cfg.seed + 1)
+        model = caption_probe.CaptionTowers(
+            feat_dim, TextEncoder(vocab_size=text_vocab_size, out_dim=128, generator=seeded),
+            generator=seeded).to(device)
+        state = TrainState(model, optimizers.get_optimizer("adam", model.parameters()),
+                           lambda _: cfg.lr)
+        if payload is not None:
+            restore_towers(model, payload, cfg.num_fixations, text_vocab_size)
+            print0(f"=> resumed caption probe from '{cfg.resume}' "
+                   f"(epoch {int(payload['epoch'])})")
+        train_step = caption_probe.make_caption_probe_train_step(
+            retina_cfg, cfg.num_fixations, cfg.temperature)
+        eval_step = caption_probe.make_caption_probe_eval_step(
+            retina_cfg, cfg.num_fixations, cfg.temperature)
+        metrics, name = METRICS, "caption_probe"
+    ckpt_file = os.path.join(cfg.checkpoint_dir, f"{name}_checkpoint.pth.tar")
+    best_file = os.path.join(cfg.checkpoint_dir, f"{name}_best.pth.tar")
 
     train_steps, eval_steps = loop_steps(cfg.test, len(reader))
 
@@ -276,14 +323,15 @@ def train(cfg, device: torch.device):
                             dtype=torch.int64)
 
     for epoch in range(cfg.epochs):
-        meters = {k: AverageMeter() for k in METRICS}
+        meters = {k: AverageMeter() for k in metrics}
         losses = AverageMeter()
         gen = generator(device, cfg.seed, 30_000 + epoch)
         drop_gen = generator(device, cfg.seed, DROPOUT_STREAM + epoch)
         end = time()
         with closing(device_batches(with_tokens(reader, tokens_for), device)) as batches:
             for i, (images, tokens) in enumerate(islice(batches, train_steps)):
-                m = train_step(state, encoder, images, tokens, gen, dropout_generator=drop_gen)
+                m = train_step(state, encoder, images, tokens, gen,
+                               **({} if generative else {"dropout_generator": drop_gen}))
                 if i % cfg.print_freq == 0:
                     losses.update(float(m["loss"]))
                     synchronize(device)
@@ -300,9 +348,13 @@ def train(cfg, device: torch.device):
                 for k in meters:
                     meters[k].update(float(m[k]))
         reader.reset()
-        print0(f"##I2T Top-1 {meters['i2t_top1'].avg}\n##I2T Top-5 {meters['i2t_top5'].avg}\n"
-               f"##T2I Top-1 {meters['t2i_top1'].avg}\n##T2I Top-5 {meters['t2i_top5'].avg}")
-        out = {"epoch": epoch + 1, "state_dict": towers.state_dict(),
+        if generative:
+            print0(f"##Caption loss {meters['caption_loss'].avg}\n"
+                   f"##Next-token Top-1 {meters['top1'].avg}")
+        else:
+            print0(f"##I2T Top-1 {meters['i2t_top1'].avg}\n##I2T Top-5 {meters['i2t_top5'].avg}\n"
+                   f"##T2I Top-1 {meters['t2i_top1'].avg}\n##T2I Top-5 {meters['t2i_top5'].avg}")
+        out = {"epoch": epoch + 1, "state_dict": model.state_dict(),
                "vocab_size": text_vocab_size}
         if vocab is not None:
             print0(f"##Vocab {vocab.size} OOV-rate {vocab.oov_rate:.4f}")

@@ -263,6 +263,24 @@ class CaptionProbeConfig:
                         help="'cuda' (default; raises if absent) or 'cpu'")
 
 
+@dataclass
+class CaptionLMConfig(CaptionProbeConfig):
+    """``coco_captions_probe.py``'s flags: :class:`CaptionProbeConfig`'s
+    (the contrastive probe, the default) and the generative objective's,
+    a language model trained on the caption tokens that follow the
+    glimpses' image tokens (``train/caption_lm.py``). ``--lm-config`` names
+    a JSON of the model's ``config.json`` keys over Kimi-VL-A3B's own
+    (``models/moe_lm.KIMI_VL_A3B``) and ``held``, the routed experts this
+    rank holds (``[first, last + 1]``, one expert-parallel rank's share;
+    experts 0-7 unless given); the vocabulary is ``--vocab-size`` rows;
+    ``--lr`` is AdamW's rate."""
+
+    objective: str = _flag("--objective", default="contrastive",
+                           choices=["contrastive", "generative"])
+    lm_config: str = _flag("--lm-config", default="",
+                           help="JSON of the language model's config.json keys")
+
+
 def add_args_from_dataclass(parser: argparse.ArgumentParser, cls) -> None:
     for f in fields(cls):
         meta = dict(f.metadata)

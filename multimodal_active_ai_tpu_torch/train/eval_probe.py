@@ -47,6 +47,21 @@ def extract_features(encoder: torch.nn.Module, images: torch.Tensor,
     :class:`~multimodal_active_ai_tpu_torch.models.simclr.SimCLRModule`); it
     is put in eval mode, so its BatchNorms use their running statistics.
     """
+    batch = images.shape[0]
+    feats = frozen_feature_maps(encoder, images, retina_cfg, num_fixations, generator, fix_yx)
+    feats = feats.permute(0, 3, 1, 2).reshape(num_fixations, batch, -1)
+    return feats.transpose(0, 1).reshape(batch, -1).to(torch.float32)
+
+
+@torch.no_grad()
+def frozen_feature_maps(encoder: torch.nn.Module, images: torch.Tensor,
+                        retina_cfg: retina.RetinaConfig, num_fixations: int,
+                        generator: torch.Generator | None = None,
+                        fix_yx: torch.Tensor | None = None) -> torch.Tensor:
+    """The frozen encoder's maps of ``num_fixations`` labeled glimpses per
+    image, un-flattened: ``(F·B, 4, 4, C)`` NHWC, view-major (row ``j·B +
+    i`` is image ``i``'s fixation ``j``), in the encoder's output dtype.
+    The draws, retina and eval-mode forward of :func:`extract_features`."""
     batch, src = images.shape[0], images.shape[1]
     if fix_yx is None:
         # the global batch's view-major draws, this rank's rows of each view
@@ -59,14 +74,11 @@ def extract_features(encoder: torch.nn.Module, images: torch.Tensor,
     if retina_cfg.mode == "matmul":
         pyramid = retina.build_pyramid(images, retina_cfg)
         glimpses = retina.apply_retina_views(pyramid, params, retina_cfg, photometric=False)
-        feats = encoder.features(glimpses)                      # (F·B, 4, 4, C)
-    else:
-        # fused/canvas: one retina call and one B-row forward a fixation
-        feats = torch.cat([encoder.features(retina.apply_retina(
-            images, retina.AugParams(*(f[j * batch:(j + 1) * batch] for f in params)),
-            retina_cfg, photometric=False)) for j in range(num_fixations)])
-    feats = feats.permute(0, 3, 1, 2).reshape(num_fixations, batch, -1)
-    return feats.transpose(0, 1).reshape(batch, -1).to(torch.float32)
+        return encoder.features(glimpses)                       # (F·B, 4, 4, C)
+    # fused/canvas: one retina call and one B-row forward a fixation
+    return torch.cat([encoder.features(retina.apply_retina(
+        images, retina.AugParams(*(f[j * batch:(j + 1) * batch] for f in params)),
+        retina_cfg, photometric=False)) for j in range(num_fixations)])
 
 
 def make_probe_train_step(retina_cfg: retina.RetinaConfig, num_fixations: int):

@@ -147,13 +147,18 @@ class RMSprop(torch.optim.Optimizer):
 
 def get_optimizer(name: str, params: Iterable, momentum: float = 0.9,
                   weight_decay: float = 1e-4,
-                  mu_dtype: torch.dtype | None = None) -> torch.optim.Optimizer:
+                  mu_dtype: torch.dtype | None = None,
+                  fused: bool = False) -> torch.optim.Optimizer:
     """sgd / adam / lars / adamw / rmsprop with the reference's wiring (SGD
     takes momentum and weight decay, Adam, LARS and RMSprop only the
     learning rate, AdamW the weight decay). The initial learning rate is 0; the trainer sets it
     per update. ``mu_dtype`` (``adam`` only) keeps Adam's first moment in
     that dtype (:class:`AdamMuDtype`); no driver sets it, the bench's
-    ``BENCH_ADAM_MU`` does."""
+    ``BENCH_ADAM_MU`` does. ``fused`` (``adamw`` only) takes torch's fused
+    AdamW, one kernel over every tensor with no temporary the size of the
+    parameters (the generative caption step sets it on a card)."""
+    if fused and name != "adamw":
+        raise ValueError(f"fused is an option of adamw, not of {name}")
     if mu_dtype is not None:
         if name != "adam":
             raise ValueError(f"mu_dtype is an option of adam, not of {name}")
@@ -167,7 +172,7 @@ def get_optimizer(name: str, params: Iterable, momentum: float = 0.9,
         return LARCAdam(params, lr=0.0)
     if name == "adamw":
         return torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=weight_decay)
+                                 weight_decay=weight_decay, fused=fused or None)
     if name == "rmsprop":
         return RMSprop(params, lr=0.0)
     raise ValueError(f"Unknown optimizer {name}")

@@ -22,24 +22,25 @@ result line):
    and B1's, B3's and B4's routes (fatal if a main-path shape leaves its
    route). B1 is also held at the labeled plan of the probe and DETR
    paths (F=2: F*B = 256 rows over the B = 128 pyramid) and timed there.
-   The four bn_act kernels (``ops/bn_act.py``: statistics with the running
-   update, the apply pass with the residual and ReLU, the gradient sums
-   and the gradient pass) against their plain versions at every ``(rows,
-   C)`` and kind of call of the ResNet-50 b=256 forward, plus float32, the
-   scalar route and a clamped variance, timed beside their bound, the
-   plain versions and ``F.batch_norm``. Then hold
+   The four bn_act kernels (``ops/bn_act.py``: the sums with the row
+   count, the apply pass that finishes the statistics and the running
+   update and adds the residual and ReLU, the gradient sums and the
+   gradient pass) against their plain versions at every ``(rows, C)`` and
+   kind of call of the ResNet-50 b=256 forward, plus float32, the scalar
+   route and a clamped variance, timed beside their bound, the plain
+   versions and ``F.batch_norm``. Then hold
    small float32 train steps on the card against the same steps on the
    CPU: ResNet10, and ResNet-50 with ``norm_kind='bn_fused'`` and
    ``stat_fusion='pallas'``; and that fused ResNet-50 at b=1, whose 1x1
    convs have row counts that are not multiples of 8, against the unfused
    one on the card, counting its B2 and B3 launches and the unfused one's
-   bn_act launches (53 statistics and 53 apply passes).
+   bn_act launches (53 sums and 53 apply passes).
 3. Drive the main path through its user entry point,
    ``multimodal_active_ai_tpu_torch.contrastive_learning.main``: SimCLR
    with saccades, ResNet-50, b=128, F=10, canvas 640, 3 train steps and
    validation, with the launch counters set to 0 just before and read just
-   after (B1 1+F a train step and 2 an eval step; bn_act 583 statistics
-   and apply launches and 530 of each backward kernel a train step, none
+   after (B1 1+F a train step and 2 an eval step; bn_act 583 sums and
+   apply launches and 530 of each backward kernel a train step, none
    in eval mode; B2-B4 none); then resume from the checkpoint it wrote,
    and time further steps.
 3b. The same driver run with ``--stat-fusion pallas`` (B3 launched
@@ -100,13 +101,16 @@ result line):
    NCCL where the machine has 2 cards, else 2 ranks sharing the one card
    over gloo (printed). (a) The SimCLR driver at the phase-3 width, ``-b
    128`` a rank (global 256), ``--multislice``; (b) B1 launched 35 times on
-   each rank, B2-B4 never, both ranks' weights bit-identical and equal to
-   the checkpoint rank 0 alone writes, the losses finite; a 1-rank job
-   runs the port's collectives on the card over NCCL. (c) A float32
-   ResNet10 step at 2 ranks x 4 rows equals the 1-rank step of the 8 rows
-   on the card. (d) The probe, DETR, RLS and caption drivers at 2 ranks, 2
-   train steps each, from the phase-3 checkpoint: B1 per rank as each path
-   launches it, rank 0 alone writing. (e) The step time a rank, the global
+   each rank, B2-B4 never, bn_act (``sync_bn`` over both ranks' rows) as
+   on the main path, both ranks' weights bit-identical and equal to the
+   checkpoint rank 0 alone writes, the losses finite; a 1-rank job runs
+   the port's collectives on the card over NCCL. (c) A float32 ResNet10
+   step at 2 ranks x 4 rows, its 12 ``sync_bn`` through bn_act, equals the
+   1-rank step of the 8 rows on the card. (d) The probe, DETR, RLS and
+   caption drivers at 2 ranks, 2 train steps each, from the phase-3
+   checkpoint: B1 per rank as each path launches it, bn_act at the RLS
+   DQN's 20 ``sync_bn`` in each update and nowhere else, rank 0 alone
+   writing. (e) The step time a rank, the global
    img/s and the peak memory beside the card's name and power limit,
    labelled when the ranks share a card.
 3i. A JAX-package checkpoint on the card. The machine has no JAX, so the
@@ -170,7 +174,8 @@ result line):
    float8 e4m3's 3 mantissa bits, which has to fall outside the bf16
    limits: losses, gradient norms and directions, running statistics,
    the launches (2 x 53 forward, 53 each backward kernel); then one bf16
-   step at F=10 launching ``bn_act_apply`` 583 times and each backward
+   step at F=10 launching ``bn_act_sums`` and ``bn_act_apply`` 583 times
+   and each backward
    kernel 530 times, timed beside the chain's.
    The ``kernels`` line carries case 1's B1 count and the fused ResNet50
    run's B2 and B3 counts as ``convergence_launches`` (bn_act: (e)'s F=10
@@ -231,6 +236,24 @@ result line):
    balanced on the batch (as the cell's seed weights are). (d) Train steps: finite losses, the MoE
    counters (26 calls a step), the median step, peak memory. ``python3
    chip_smoke.py --caption-lm`` runs this phase alone.
+3p. ``sync_bn`` through ``bn_act``'s kernels (``ops/bn_act.py:
+   batch_norm_act`` over every rank's rows). (a) On one card, at every
+   BatchNorm call of ResNet-50 b=256 (bf16) and two float32 calls: a
+   ``SyncBatchNorm`` through the Function at world 1 launches each of the
+   four kernels once; four equal ranks' sums played on one card give the
+   one-card statistics, output and ``dx`` bit for bit. (b) Given 4 cards,
+   a job of 4 NCCL ranks:
+   at each of those calls at b=256 a rank, bf16 and float32, the fused
+   sync path against ``SyncBatchNorm``'s chain forward and backward (the
+   CPU tests' tolerances), one ``collectives.sum`` each way, the device
+   kernels one call launches each way and the host time of the 53 calls.
+   (c) The SimCLR driver on 4 ranks at the four-card cell's width: 583
+   fused ``sync_bn`` calls a step (53 BatchNorms, 11 forwards), none on the
+   chain, 1,113 ``collectives.sum`` calls a step (one a BatchNorm call
+   each way) plus the metrics', and on each rank bn_act's four kernels
+   launched 583, 583, 530 and 530 times a train step. On fewer cards (b)
+   and (c) print why they are skipped. ``python3 chip_smoke.py --sync-bn``
+   runs ``bn_act``'s phase-2 checks and this phase alone.
 4. Print ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 It imports nothing of JAX. It exits non-zero without CUDA, and when the
@@ -413,14 +436,15 @@ def resnet_bn_calls(arch: str, batch: int) -> Counter:
     return calls
 
 
-BN_ACT_KERNELS = ("bn_act_stats", "bn_act_apply", "bn_act_grad_sums", "bn_act_grad_apply")
+BN_ACT_KERNELS = ("bn_act_sums", "bn_act_apply", "bn_act_grad_sums", "bn_act_grad_apply")
 
 
 def bn_act_launches(forwards: int, backwards: int, norms: int) -> dict:
     """The launches of ``bn_act``'s four kernels in ``forwards`` train-mode
     forwards and ``backwards`` backwards of a model with ``norms`` fused
-    BatchNorms: the statistics and the apply pass once a norm a forward,
-    each backward kernel once a norm a backward."""
+    BatchNorms (``bn``, or ``sync_bn`` at any world size): the sums and the
+    apply pass once a norm a forward, each backward kernel once a norm a
+    backward."""
     return dict(zip(BN_ACT_KERNELS, (forwards * norms,) * 2 + (backwards * norms,) * 2))
 
 
@@ -857,32 +881,40 @@ def check_bn_act(torch, ba):
         for _ in range(2):
             rm, rv = rm0.clone(), rv0.clone()
             nbt = torch.zeros((), dtype=torch.int64, device=dev)
-            stats = ba.bn_act_stats(x, rm, rv, nbt, 0.9, 1e-5)
-            y = ba.bn_act_apply(x, stats, w, b, identity, relu)
+            sums = ba.bn_act_sums(x)
+            y, stats = ba.bn_act_apply(x, sums, w, b, rm, rv, nbt, 0.9, 1e-5, identity, relu)
             mask = y if relu else None
             dw, db = ba.bn_act_grad_sums(g, x, mask, stats)
-            dx, gy = ba.bn_act_grad_apply(g, x, mask, stats, w, dw, db, True, with_id)
-            runs.append([stats, rm, rv, nbt, y, dw, db, dx] + ([gy] if with_id else []))
+            dx, gy = ba.bn_act_grad_apply(g, x, mask, stats, w, dw, db, sums, True, with_id)
+            runs.append([sums, stats, rm, rv, nbt, y, dw, db, dx] + ([gy] if with_id else []))
         torch.cuda.synchronize()
         same = all(torch.equal(u, v) for u, v in zip(*runs))
-        stats, rm, rv, nbt, y, dw, db, dx = runs[0][:8]
+        sums, stats, rm, rv, nbt, y, dw, db, dx = runs[0][:9]
         mask = y if relu else None
-        ref = ba.bn_act_stats_plain(x, 1e-5)
-        mean, raw = ba.mean_raw_var(x)
+        sums_p = ba.bn_act_sums_plain(x)
         rm_p, rv_p = rm0.clone(), rv0.clone()
-        ba.update_running(rm_p, rv_p, torch.zeros_like(nbt), mean, raw.clamp_min(0.0), 0.9)
+        _, ref = ba.bn_act_apply_plain(x, sums_p, w, b, rm_p, rv_p, torch.zeros_like(nbt), 0.9,
+                                       1e-5, identity, relu)
         dw_p, db_p = ba.bn_act_grad_sums_plain(g, x, mask, stats)
-        dx_p, gy_p = ba.bn_act_grad_apply_plain(g, x, mask, stats, w, dw, db)
-        e = {"mean": normwise_err(stats[0], ref[0]), "running_mean": normwise_err(rm, rm_p),
+        dx_p, gy_p = ba.bn_act_grad_apply_plain(g, x, mask, stats, w, dw, db, sums[-1:])
+        e = {"sums": normwise_err(sums[:2 * c], sums_p[:2 * c]),
+             "mean": normwise_err(stats[0], ref[0]), "running_mean": normwise_err(rm, rm_p),
              "dw": normwise_err(dw, dw_p), "db": normwise_err(db, db_p),
              "dx": normwise_err(dx, dx_p)}
         kept = slice(0, c // 2) if edge == "clamped" else slice(None)
         e["rstd"] = normwise_err(stats[1, kept], ref[1, kept])
         e["running_var"] = normwise_err(rv[kept], rv_p[kept])
-        exact = {"y": torch.equal(y, ba.bn_act_apply_plain(x, stats, w, b, identity, relu)),
+        # the statistics finished from the kernel's own sums (the plain
+        # version's float32 operations; rsqrt may round apart), and the
+        # apply pass from the kernel's statistics: the same bits
+        _, stats_s = ba.bn_act_apply_plain(x, sums, w, b, rm0.clone(), rv0.clone(),
+                                           torch.zeros_like(nbt), 0.9, 1e-5, identity, relu)
+        e["finish"] = normwise_err(stats[:2, kept], stats_s[:2, kept])
+        exact = {"count": float(sums[-1]) == n,
+                 "y": torch.equal(y, ba.normalize_act_plain(x, stats, w, b, identity, relu)),
                  "batches": int(nbt) == 1}
         if with_id:
-            exact["d_identity"] = torch.equal(runs[0][8], gy_p)
+            exact["d_identity"] = torch.equal(runs[0][9], gy_p)
         if edge == "clamped":
             flags = stats[2] != 0
             exact["clamped"] = bool(flags[c // 2:].any()) and not bool(flags[:c // 2].any())
@@ -901,7 +933,7 @@ def check_bn_act(torch, ba):
               + f"; same bits on a second call {same} {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"bn_act ({n}, {c}) {dt} {kind} {edge} disagrees with its plain versions")
-        errs += [v[0] for k, v in e.items() if k not in ("dx", "dw", "db")]
+        errs += [v[0] for k, v in e.items() if k not in ("dx", "dw", "db", "sums")]
         if dt != bf16 or edge or (n, c, kind) not in calls:
             continue
 
@@ -912,16 +944,15 @@ def check_bn_act(torch, ba):
         x4, g4, id4 = nchw(x), nchw(g), None if identity is None else nchw(identity)
 
         def fwd():
-            st = ba.bn_act_stats(x, rm, rv, nbt, 0.9, 1e-5)
-            ba.bn_act_apply(x, st, w, b, identity, relu)
+            ba.bn_act_apply(x, ba.bn_act_sums(x), w, b, rm, rv, nbt, 0.9, 1e-5, identity, relu)
 
         def bwd():
             dw_, db_ = ba.bn_act_grad_sums(g, x, mask, stats)
-            ba.bn_act_grad_apply(g, x, mask, stats, w, dw_, db_, True, with_id)
+            ba.bn_act_grad_apply(g, x, mask, stats, w, dw_, db_, sums, True, with_id)
 
         def plain():
-            st = ba.bn_act_stats_plain(x, 1e-5)
-            yp = ba.bn_act_apply_plain(x, st, w, b, identity, relu)
+            yp, st = ba.bn_act_apply_plain(x, ba.bn_act_sums_plain(x), w, b, rm, rv, nbt, 0.9,
+                                           1e-5, identity, relu)
             ba.bn_act_grad_plain(g, x, yp if relu else None, st, w)
 
         xr = x4.detach().requires_grad_()
@@ -1152,7 +1183,7 @@ def check_odd_rows(torch, counters):
     multiples of 8). With ``norm_kind='bn_fused'`` and
     ``stat_fusion='pallas'`` each of the 36 fused convs launches B3 and
     each of the 17 other norms B2, and the ``bn`` model with the same
-    weights runs each of its 53 norms as ``bn_act``'s statistics and apply
+    weights runs each of its 53 norms as ``bn_act``'s sums and apply
     kernels, with the counters set to 0 just before and read just after;
     the float32 features of the two match (cuDNN convs and the fused
     norms on the ``bn`` side) to normwise 1e-3 (BatchNorm over layer4's 16 pixels amplifies roundings:
@@ -2137,7 +2168,8 @@ def torchrun(nproc: int, script: str, args: list[str], label: str,
     try:
         out, _ = p.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
-        out = ""
+        os.killpg(p.pid, signal.SIGKILL)
+        out = p.communicate()[0] + f"\n(killed after {timeout:.0f} s)"
     finally:
         if p.poll() is None:
             os.killpg(p.pid, signal.SIGKILL)
@@ -2185,15 +2217,18 @@ def _collective_ms(torch, dev) -> dict:
     """Median host times of the collectives a SimCLR step makes, in this
     job's process group on ``dev``: the all-reduce of a ResNet-50 SimCLR
     model's gradient (one flat float32 buffer, F a step) and of one
-    BatchNorm layer's largest ``(Σx, Σx², count)`` vector (2·2048 + 1
-    floats; every train-mode BatchNorm forward and backward)."""
+    BatchNorm layer's largest buffers (C = 2048): the forward's ``(Σx, Σx²,
+    count)``, 2·2048 + 1 floats, and the backward's ``(dw, db)``, 2·2048
+    (the fused ``sync_bn``, ``ops/bn_act.py``; every train-mode BatchNorm
+    forward and backward)."""
     import torch.distributed as dist
     from multimodal_active_ai_tpu_torch.models.simclr import SimCLRModule
 
     with torch.device("meta"):
         numel = sum(p.numel() for p in SimCLRModule(ARCH).parameters())
     out = {"grad_floats": numel}
-    for name, n, reps in (("grad", numel, 5), ("bn", 2 * 2048 + 1, 51)):
+    for name, n, reps in (("grad", numel, 5), ("bn", 2 * 2048 + 1, 51),
+                          ("bn_grad", 2 * 2048, 51)):
         x = torch.ones(n, device=dev)
         times = []
         for _ in range(reps):
@@ -2232,24 +2267,28 @@ def rank_job(kind: str, outdir: str, argv: list[str]) -> int:
 
     * ``simclr``: ``contrastive_learning.main(argv)`` (the user's entry
       point, which joins and leaves the job's process group), with the
-      launch counters set to 0 just before and read just after, its peak
-      memory and final weights;
-    * ``equal``: :func:`_dist_small_step` in the job's process group;
+      launch counters (B1-B4 and ``bn_act``'s four) set to 0 just before
+      and read just after, its peak memory and final weights;
+    * ``equal``: :func:`_dist_small_step` in the job's process group, its
+      ``bn_act`` launches counted;
     * ``downstream``: the four downstream drivers' ``train`` in one process
       group, each from the checkpoint ``argv[0]`` with its counters set to
       0 just before and read just after;
     * ``nccl``: the port's collectives on the card in a job of one rank
       (NCCL): gather, sum, the differentiable gather and sum, and their
-      gradients."""
+      gradients;
+    * ``sync_bn``: :func:`_sync_bn_rank_checks` (phase 3p)."""
     sys.path.insert(0, ROOT)
     import torch
     from multimodal_active_ai_tpu_torch import config, parallel
+    from multimodal_active_ai_tpu_torch.ops import bn_act as ba
     from multimodal_active_ai_tpu_torch.ops import conv1x1_stats as cs
     from multimodal_active_ai_tpu_torch.ops import glimpse_sample as gs
     from multimodal_active_ai_tpu_torch.ops import stat_sums as ss
 
     counters = {"glimpse_sample": gs.glimpse_sample, "stat_sums": ss.stat_sums,
-                "conv1x1_stats": cs.conv1x1_stats, "hat_sample": gs.hat_sample}
+                "conv1x1_stats": cs.conv1x1_stats, "hat_sample": gs.hat_sample,
+                **{k: getattr(ba, k) for k in BN_ACT_KERNELS}}
     rank = int(os.environ["RANK"])
     rdir = os.path.join(outdir, f"rank{rank}")
     os.makedirs(rdir, exist_ok=True)
@@ -2272,7 +2311,9 @@ def rank_job(kind: str, outdir: str, argv: list[str]) -> int:
         record["backend"] = dist.get_backend()
         try:
             if kind == "equal":
+                reset_counts(counters.values())
                 record.update(_dist_small_step(torch, dev))
+                record["launches"] = {k: counters[k].launches for k in BN_ACT_KERNELS}
                 record["collectives"] = _collective_ms(torch, dev)
             elif kind == "downstream":
                 import importlib
@@ -2286,6 +2327,8 @@ def rank_job(kind: str, outdir: str, argv: list[str]) -> int:
                     state = out[0] if isinstance(out, tuple) else out
                     record[name] = {"launches": {k: c.launches for k, c in counters.items()},
                                     "steps": state.step, "wall_s": time.perf_counter() - t0}
+            elif kind == "sync_bn":
+                record.update(_sync_bn_rank_checks(torch, dev))
             elif kind == "nccl":
                 x = torch.randn(8, 16, device=dev, requires_grad=True)
                 gathered = parallel.cross_replica_concat(x)
@@ -2351,7 +2394,10 @@ def run_multi_rank_path(torch, simclr_ck: str, workdir: str, device_name: str) -
     if f"backend {backend}" not in log:
         fail(f"the 2-rank job did not report backend {backend}:\n{log[-3000:]}")
     expected = TRAIN_STEPS * (1 + FIXATIONS) + 2 * EVAL_STEPS
-    want = {"glimpse_sample": expected, "stat_sums": 0, "conv1x1_stats": 0, "hat_sample": 0}
+    # sync_bn at 2 ranks: the 53 BatchNorms through bn_act in each train
+    # step's 1+F forwards and F backwards, none in eval mode
+    want = {"glimpse_sample": expected, "stat_sums": 0, "conv1x1_stats": 0, "hat_sample": 0,
+            **bn_act_launches(TRAIN_STEPS * (1 + FIXATIONS), TRAIN_STEPS * FIXATIONS, 53)}
     for r, rec in enumerate(ranks):
         if rec["launches"] != want:
             fail(f"rank {r} launches {rec['launches']}, expected {want}")
@@ -2374,7 +2420,8 @@ def run_multi_rank_path(torch, simclr_ck: str, workdir: str, device_name: str) -
     print(f"2-rank SimCLR job ({how}; {ARCH}, b={BATCH} a rank, global {nproc * BATCH}, "
           f"F={FIXATIONS}, canvas {CANVAS}, bf16, --multislice): glimpse_sample launches "
           f"{[rec['launches']['glimpse_sample'] for rec in ranks]} a rank (expected {expected}),"
-          f" B2-B4 0; weights bit-identical on both ranks and in rank 0's checkpoint "
+          f" B2-B4 0, bn_act {[rec['launches'][k] for k in BN_ACT_KERNELS]} a rank (fused "
+          f"sync_bn); weights bit-identical on both ranks and in rank 0's checkpoint "
           f"({len(sd0)} tensors), rank 1 wrote nothing; loss_history {hist}; wall {wall:.1f} s")
     label = " (2 ranks on one card: not a scaling figure)" if shared else ""
     print(f"2-rank SimCLR step{label}: {step_ms:.1f} ms a step a rank (median of steps 2-"
@@ -2397,25 +2444,30 @@ def run_multi_rank_path(torch, simclr_ck: str, workdir: str, device_name: str) -
     running = max(float((e0["sd"][k] - v).abs().max() / v.abs().max())
                   for k, v in one["sd"].items() if k.endswith(("running_mean", "running_var")))
     ranks_same = all(torch.equal(e0["sd"][k], e1["sd"][k]) for k in e0["sd"])
-    ok = (ranks_same and bool(torch.allclose(e0["losses"], one["losses"], rtol=1e-3, atol=0))
+    # ResNet10's 12 BatchNorms, sync_bn at 2 ranks, F=2: 3 forwards, 2 backwards
+    fused = all(e["launches"] == bn_act_launches(3, 2, 12) for e in (e0, e1))
+    ok = (ranks_same and fused
+          and bool(torch.allclose(e0["losses"], one["losses"], rtol=1e-3, atol=0))
           and float(diffs.max()) <= 4 * lr * 1.001 and float(diffs.median()) <= 1e-2 * lr
           and float((diffs > lr / 10).float().mean()) <= 0.05 and running <= 5e-3)
     print(f"small f32 ResNet10 step on the card, 2 ranks x 4 rows ({e0['backend']}) vs 1 rank x "
           f"8 rows: losses {e0['losses'].tolist()} vs {one['losses'].tolist()} (rtol 1e-3); "
           f"weights max {float(diffs.max()) / lr:.3g} lr, median {float(diffs.median()) / lr:.3g}"
           f" lr, {float((diffs > lr / 10).float().mean()):.3%} above lr/10; running statistics "
-          f"{running:.3g} of their largest value; ranks bit-identical {ranks_same} "
+          f"{running:.3g} of their largest value; ranks bit-identical {ranks_same}; bn_act "
+          f"launches {e0['launches']} a rank, the fused sync_bn {fused} "
           f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
         fail("the 2-rank step on the card disagrees with the 1-rank step")
     c = e0["collectives"]
     n_bn = 53                                  # ResNet-50's BatchNorm layers
-    n_small = n_bn * (1 + FIXATIONS) + n_bn * FIXATIONS
-    modelled = FIXATIONS * c["grad_ms"] + n_small * c["bn_ms"]
+    n_fwd, n_bwd = n_bn * (1 + FIXATIONS), n_bn * FIXATIONS
+    modelled = FIXATIONS * c["grad_ms"] + n_fwd * c["bn_ms"] + n_bwd * c["bn_grad_ms"]
     print(f"{e0['backend']} all-reduce ({how}): "
           f"the SimCLR gradient ({c['grad_floats']:,} floats, {4 * c['grad_floats'] / 1e6:.0f} "
-          f"MB) {c['grad_ms']:.1f} ms, a BatchNorm sum (4,097 floats) {c['bn_ms']:.3f} ms; a "
-          f"step makes {FIXATIONS} and {n_small}: {modelled:.0f} ms of collectives in the "
+          f"MB) {c['grad_ms']:.1f} ms, a BatchNorm's sums (4,097 floats) {c['bn_ms']:.3f} ms "
+          f"forward, (4,096 floats) {c['bn_grad_ms']:.3f} ms backward; a step makes "
+          f"{FIXATIONS}, {n_fwd} and {n_bwd}: {modelled:.0f} ms of collectives in the "
           f"{step_ms:.0f} ms step [{device_name}]")
 
     # (d): the downstream drivers
@@ -2423,7 +2475,12 @@ def run_multi_rank_path(torch, simclr_ck: str, workdir: str, device_name: str) -
     t0 = time.perf_counter()
     _, ranks = run_ranks(torch, nproc, "downstream", outdir, [simclr_ck])
     for name, (_, files, b1) in DOWNSTREAM.items():
-        want = {"glimpse_sample": b1, "stat_sums": 0, "conv1x1_stats": 0, "hat_sample": 0}
+        # bn_act: the RLS DQN's 20 sync_bn BatchNorms in each update that
+        # the seed's coins give (-dqnb 256 over 2 ranks); the others none
+        updates = (expected_dqn_updates(15, ranks[0][name]["steps"], BATCH, 10_000, 256 // nproc)
+                   if name.endswith("rls") else 0)
+        want = {"glimpse_sample": b1, "stat_sums": 0, "conv1x1_stats": 0, "hat_sample": 0,
+                **bn_act_launches(updates, updates, sum(resnet_bn_calls("ResNet18", 1).values()))}
         got = [rec[name]["launches"] for rec in ranks]
         written = [os.path.isfile(os.path.join(outdir, f"rank{r}", name, f))
                    for r in range(nproc) for f in files]
@@ -3688,7 +3745,7 @@ def check_bn_act_update(torch, ba, device_name) -> dict:
     within ``BN_UPDATE_LIMITS`` of the float32 chain, and the control
     outside at least one of them; the gradients' and running statistics'
     gaps, medians over the seeds, within twice the bf16 chain's. Each fused
-    update launches ``bn_act_stats`` and ``bn_act_apply`` 2 x 53 times (view
+    update launches ``bn_act_sums`` and ``bn_act_apply`` 2 x 53 times (view
     0 and view 1) and each backward kernel 53 times; the chain and the
     control none. Then one bf16 step at F=10 (the benchmark's step): 583 and
     530 launches, and its time beside the chain's (median of 3 after
@@ -4231,6 +4288,353 @@ def run_caption_lm_path(torch, device_name) -> dict:
     return {"flips": flips, "step_ms": step_ms, "peak_gib": peak}
 
 
+# ---------------------------------------------------------------------------
+# phase 3p: sync_bn on the card through bn_act's kernels
+
+SYNC_BN_RANKS = 4              # the four-card SimCLR cell's ranks
+
+
+def _sync_bn_inputs(torch, dev, n, c, kind, dt, own, shared):
+    """A BatchNorm call of ResNet-50 at b=256 (``n`` rows of ``c`` channels,
+    ``kind`` of :data:`BN_KINDS`) as the model makes it: channels-last NCHW
+    views of ``x`` (un-centred), the residual and the output gradient from
+    ``own`` (this rank's); the weight, bias and running buffers from
+    ``shared`` (every rank's alike)."""
+    with_id, relu = BN_KINDS[kind]
+    side = math.isqrt(n // 256)
+
+    def draw(shift=0.0):
+        t = torch.randn(256, side, side, c, device=dev, generator=own) + shift
+        return t.to(dt).permute(0, 3, 1, 2)
+
+    x = draw(torch.linspace(-1, 3, c, device=dev)) * 2
+    identity = draw() if with_id else None
+    g = draw()
+    w = torch.rand(c, device=dev, generator=shared) + 0.5
+    b = torch.randn(c, device=dev, generator=shared)
+    rm = torch.randn(c, device=dev, generator=shared)
+    rv = torch.rand(c, device=dev, generator=shared) + 0.5
+    return x, identity, g, w, b, rm, rv, relu
+
+
+def _sync_bn_module(torch, SyncBatchNorm, inputs):
+    """A train-mode ``SyncBatchNorm`` on the card with the weight, bias and
+    running buffers of :func:`_sync_bn_inputs`."""
+    x, _, _, w, b, rm, rv, _ = inputs
+    bn = SyncBatchNorm(x.shape[1]).to(x.device).train()
+    with torch.no_grad():
+        bn.weight.copy_(w)
+        bn.bias.copy_(b)
+        bn.running_mean.copy_(rm)
+        bn.running_var.copy_(rv)
+    return bn
+
+
+def _sync_bn_side(torch, ba, bn, inputs, world, fused):
+    """One train-mode forward and backward of ``relu?(bn(x) [+ identity])``
+    under ``y.backward(g)``, ``bn`` a ``SyncBatchNorm`` whose gradients are
+    set to None first: ``bn_act``'s Function over ``world`` ranks' rows
+    (``fused`` true) or the module's float32 chain. Returns y, the
+    gradients and the buffers."""
+    x, identity, g, _, _, _, _, relu = inputs
+    bn.zero_grad(set_to_none=True)
+    xr = x.detach().requires_grad_()
+    idr = None if identity is None else identity.detach().requires_grad_()
+    if fused:
+        y = ba.batch_norm_act(xr, bn.weight, bn.bias, bn.running_mean, bn.running_var,
+                              bn.num_batches_tracked, bn.momentum, bn.eps, idr, relu, world > 1)
+    else:
+        y = bn(xr)
+        y = y if idr is None else y + idr
+        y = torch.relu(y) if relu else y
+    y.backward(g)
+    out = {"y": y.detach(), "dx": xr.grad, "dw": bn.weight.grad, "db": bn.bias.grad,
+           "running_mean": bn.running_mean, "running_var": bn.running_var,
+           "batches": int(bn.num_batches_tracked)}
+    if idr is not None:
+        out["d_identity"] = idr.grad
+    return out
+
+
+def _sync_bn_agree(torch, fused: dict, chain: dict, g, x, relu: bool, dt, mean,
+                   rstd) -> tuple[list, dict]:
+    """The fused side against the chain, in the structure of
+    ``tests/test_torch_port_bn_act.py``'s bf16 test: the output normwise;
+    the share of elements whose ReLU mask flips (both sides round ``y``
+    near 0 apart); ``dx`` where the masks agree, over the largest; ``d
+    identity`` the same bits there; ``dw`` and ``db`` per channel within a
+    share of the largest plus what the flipped elements' gradients add; the
+    running buffers 1e-5 normwise and one batch tracked either way.
+    Tolerances: bf16 that test's (one bf16 step 2^-7, 1% flips, 2e-2);
+    float32 ``y``, ``dw`` and ``db`` 1e-5 (float32 sums in other orders),
+    flips 1e-4 (one element of 8.4 M flipped at ResNet-50's (4096, 2048)
+    on one of four ranks), ``dx`` 1e-4: the chain takes the cotangents of
+    the global mean and variance through its all-reduce, another formula
+    than the kernels', 2.4e-5-2.7e-5 at (4096, 2048) on 4 ranks. Returns
+    the names of the checks that failed and the errors (``dw_excess``,
+    ``db_excess``: the largest per-channel distance beyond the flipped
+    elements' share, over the largest value); ``mean`` and ``rstd`` are the
+    global batch's statistics, which give the flipped elements' ``x̂``."""
+    e = {k: normwise_err(fused[k], chain[k])[1]
+         for k in ("y", "dx", "dw", "db", "running_mean", "running_var")}
+    tol = ({"y": 2 ** -7, "flips": 1e-2, "dx": 2e-2, "sums": 2e-2} if dt == torch.bfloat16 else
+           {"y": 1e-5, "flips": 1e-4, "dx": 1e-4, "sums": 1e-5})
+    failed = [k for k in ("running_mean", "running_var") if e[k] > 1e-5]
+    failed += [] if fused["batches"] == chain["batches"] == 1 else ["batches"]
+    flip = ((chain["y"] > 0) != (fused["y"] > 0)) if relu else torch.zeros_like(
+        chain["y"], dtype=torch.bool)
+    keep = ~flip
+    e["flips"] = float(flip.float().mean())
+    dx = (fused["dx"].float() - chain["dx"].float()).abs()[keep]
+    e["dx"] = float(dx.max()) / float(chain["dx"].float().abs().max())
+    dims = (0, 2, 3)
+    xhat = (x.float() - mean.view(1, -1, 1, 1)) * rstd.view(1, -1, 1, 1)
+    gf = g.float() * flip
+    failed += [k for k in ("y", "flips", "dx") if e[k] > tol[k]]
+    for k, slack in (("db", gf.abs().sum(dims)), ("dw", (gf * xhat).abs().sum(dims))):
+        big = float(chain[k].abs().max())
+        e[f"{k}_excess"] = float(((fused[k] - chain[k]).abs() - slack).max()) / big
+        failed += [k] if e[f"{k}_excess"] > tol["sums"] else []
+    if "d_identity" in fused and not torch.equal(fused["d_identity"][keep],
+                                                 chain["d_identity"][keep]):
+        failed.append("d_identity")
+    return failed, e
+
+
+def check_bn_act_sync_one_card(torch, ba):
+    """Phase 3p(a), ``bn_act``'s Function over several ranks' rows played
+    on one card, at every BatchNorm call of ResNet-50 b=256 in bf16 and at
+    two float32 calls: (1) a ``SyncBatchNorm``'s forward and backward
+    through the Function at world 1 (no all-reduce) launch each of the four
+    kernels once; (2) four ranks holding the same rows: the sums buffer
+    times 4 (its count 4·rows) gives the one-card statistics and output,
+    and the gradient sums times 4 with it the one-card ``dx``, bit for bit
+    (×4 and the division by 4·rows are exact in float32)."""
+    from multimodal_active_ai_tpu_torch.models.norm import SyncBatchNorm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    calls = resnet_bn_calls("ResNet50", 256)
+    cases = [(n, c, kind, torch.bfloat16) for (n, c, kind) in sorted(calls)]
+    cases += [(230400, 64, "relu", torch.float32), (4096, 2048, "residual", torch.float32)]
+    for n, c, kind, dt in cases:
+        inputs = _sync_bn_inputs(torch, dev, n, c, kind, dt, gen, gen)
+        x, identity, g, w, b, rm, rv, relu = inputs
+        before = {k: getattr(ba, k).launches for k in BN_ACT_KERNELS}
+        one = _sync_bn_side(torch, ba, _sync_bn_module(torch, SyncBatchNorm, inputs), inputs, 1,
+                            True)
+        launched = {k: getattr(ba, k).launches - v for k, v in before.items()}
+        # (2): four equal ranks' sums on one card
+        x2d, g2d = ba._rows(x), ba._rows(g)
+        id2d = None if identity is None else ba._rows(identity)
+        sums = ba.bn_act_sums(x2d)
+        nbt = torch.zeros((), dtype=torch.int64, device=dev)
+        y4, stats4 = ba.bn_act_apply(x2d, sums * 4, w, b, rm.clone(), rv.clone(), nbt, 0.9, 1e-5,
+                                     id2d, relu)
+        _, stats1 = ba.bn_act_apply(x2d, sums, w, b, rm.clone(), rv.clone(), nbt.clone(), 0.9,
+                                    1e-5, id2d, relu)
+        mask = y4 if relu else None
+        total = torch.empty((2, c), dtype=torch.float32, device=dev)
+        ba.bn_act_grad_sums(g2d, x2d, mask, stats4, total)
+        dx4, _ = ba.bn_act_grad_apply(g2d, x2d, mask, stats4, w, total[0] * 4, total[1] * 4,
+                                      sums * 4)
+        four = (float(sums[-1]) == n and torch.equal(stats4, stats1)
+                and torch.equal(y4, ba._rows(one["y"])) and torch.equal(dx4, ba._rows(one["dx"])))
+        ok = four and launched == dict.fromkeys(BN_ACT_KERNELS, 1) and one["batches"] == 1
+        print(f"bn_act over ranks ({n}, {c}) {str(dt)[6:]} {kind}: 4 equal ranks' sums the "
+              f"one-card statistics, output and dx {four}; launches at world 1 {launched} "
+              f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"bn_act over ranks at ({n}, {c}) {dt} {kind} disagrees with one card")
+
+
+def _sync_bn_rank_checks(torch, dev) -> dict:
+    """The ``sync_bn`` rank job of phase 3p, in a process group of
+    :data:`SYNC_BN_RANKS` NCCL ranks: at each BatchNorm call of ResNet-50
+    at b=256 a rank (rank-own rows, every rank's weights alike), in bf16 and
+    float32, the fused sync Function against ``SyncBatchNorm``'s chain
+    forward and backward (:func:`_sync_bn_agree`), with bn_act's and the
+    collectives' counters read around each fused call; per kind of call,
+    the device kernels one fused call and one chain call launch, forward
+    and backward (a profiler trace); the host time of each, median of 5,
+    over the 53 calls of one forward and backward. A call that disagrees is
+    recorded, not raised, so that every rank makes the same collectives to
+    the end; each call's line is also printed as it ends, so a job cut by
+    its time limit still shows how far it got."""
+    from multimodal_active_ai_tpu_torch import parallel
+    from multimodal_active_ai_tpu_torch.models.norm import SyncBatchNorm
+    from multimodal_active_ai_tpu_torch.ops import bn_act as ba
+    from multimodal_active_ai_tpu_torch.parallel import collectives
+    from multimodal_active_ai_tpu_torch.utils import profiling
+
+    world, rank = parallel.world_size(), parallel.rank()
+    own = torch.Generator(device=dev).manual_seed(31 + rank)
+    shared = torch.Generator(device=dev).manual_seed(21)
+    calls = resnet_bn_calls("ResNet50", 256)
+    record = {"world": world, "calls": [], "launches": {}, "ms": Counter()}
+    for (n, c, kind), count in sorted(calls.items()):
+        for dt in (torch.bfloat16, torch.float32):
+            inputs = _sync_bn_inputs(torch, dev, n, c, kind, dt, own, shared)
+            before = {k: getattr(ba, k).launches for k in BN_ACT_KERNELS}
+            sums0 = collectives.counts()["collectives.sum"][0]
+            fused = _sync_bn_side(torch, ba, _sync_bn_module(torch, SyncBatchNorm, inputs), inputs,
+                                  world, True)
+            launched = {k: getattr(ba, k).launches - v for k, v in before.items()}
+            sums = collectives.counts()["collectives.sum"][0] - sums0
+            chain = _sync_bn_side(torch, ba, _sync_bn_module(torch, SyncBatchNorm, inputs), inputs,
+                                  world, False)
+            xd = inputs[0].double()
+            moments = parallel.all_reduce_sum(torch.stack([xd.sum((0, 2, 3)),
+                                                           (xd * xd).sum((0, 2, 3))]))
+            rows = xd.numel() // c * world
+            mean = moments[0] / rows
+            rstd = torch.rsqrt(moments[1] / rows - mean * mean + 1e-5)
+            del xd
+            torch.cuda.synchronize()
+            failed, e = _sync_bn_agree(torch, fused, chain, inputs[2], inputs[0], inputs[7], dt,
+                                       mean.float(), rstd.float())
+            failed += [] if sums == 2 else ["sums"]
+            failed += [] if launched == dict.fromkeys(BN_ACT_KERNELS, 1) else ["launches"]
+            record["calls"].append((n, c, kind, str(dt)[6:], e, sums, failed))
+            print(f"rank {rank} ({n}, {c}) {dt} {kind}: {e}, {sums} sums, launches "
+                  f"{launched}, failed {failed}", flush=True)
+            if dt != torch.bfloat16:
+                continue
+            bn = _sync_bn_module(torch, SyncBatchNorm, inputs)
+            for side in ("sync", "chain"):
+                times = []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _sync_bn_side(torch, ba, bn, inputs, world, side == "sync")
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                record["ms"][side] += count * sorted(times)[2]
+            if kind not in record["launches"]:
+                got = {}
+                for side in ("sync", "chain"):
+                    with profiling.trace() as prof:
+                        _sync_bn_side(torch, ba, bn, inputs, world, side == "sync")
+                        torch.cuda.synchronize()
+                    got[side] = len(profiling.device_leaf_ops(prof))
+                record["launches"][kind] = got
+    return record
+
+
+def run_sync_bn_path(torch, ba, workdir: str, device_name: str) -> dict | None:
+    """Phase 3p: ``sync_bn`` through ``bn_act``'s kernels at world > 1.
+
+    (a) :func:`check_bn_act_sync_one_card` on one card. Then, given at
+    least :data:`SYNC_BN_RANKS` cards (NCCL refuses two ranks on one card;
+    on fewer the phase prints why and stops here):
+    (b) :func:`_sync_bn_rank_checks` as a job of 4 NCCL ranks, one a card:
+    ResNet-50's BatchNorm calls at b=256 a rank, fused against the chain,
+    the launches of one call each way, and their host times;
+    (c) the SimCLR driver at the four-card cell's width (ResNet-50, b=256 a
+    rank, F=10, canvas 640, bf16, its train steps and validation, ``-v``) on
+    4 ranks: its ``sync_bn`` line reads 583 fused train-mode calls a step
+    (53 BatchNorms, 11 forwards) and 0 on the chain, and its
+    ``collectives.sum`` line one all-reduce per BatchNorm call a direction
+    (583 forward, 530 in the 10 backwards) plus the step's few metric
+    sums; each rank's bn_act counters, read around the whole run, 583 sums
+    and apply launches and 530 of each backward kernel a train step."""
+    t0 = time.perf_counter()
+    check_bn_act_sync_one_card(torch, ba)
+    cards = torch.cuda.device_count()
+    if cards < SYNC_BN_RANKS:
+        print(f"phase 3p(b, c) skipped: {cards} card(s), and the {SYNC_BN_RANKS}-rank sync_bn "
+              f"jobs need one card a rank (NCCL refuses two ranks on one card)")
+        return None
+    _, ranks = run_ranks(torch, SYNC_BN_RANKS, "sync_bn", os.path.join(workdir, "sync_bn"), [],
+                         timeout=420.0)
+    rec = ranks[0]
+    for n, c, kind, dt, e, sums, failed in rec["calls"]:
+        print(f"sync_bn fused vs chain on {rec['world']} ranks, ({n}, {c}) a rank {dt} {kind}: "
+              f"normwise " + ", ".join(f"{k} {v:.2g}" for k, v in e.items())
+              + f"; collectives.sum {sums} a call {'ok' if not failed else failed}")
+    bad = [(r, call[:4], call[6], call[4]) for r, got in enumerate(ranks)
+           for call in got["calls"] if call[6]]
+    print(f"sync_bn device kernels a call, forward + backward (profiler), fused / chain: "
+          + "; ".join(f"{k} {v['sync']} / {v['chain']}" for k, v in rec["launches"].items()))
+    print(f"sync_bn host time of ResNet-50's 53 calls forward + backward at b=256 a rank, bf16, "
+          f"{rec['world']} ranks: fused {rec['ms']['sync']:.1f} ms, chain "
+          f"{rec['ms']['chain']:.1f} ms [{device_name}]")
+    if any(v["sync"] >= v["chain"] for v in rec["launches"].values()):
+        fail(f"the fused sync_bn launches no fewer kernels than the chain: {rec['launches']}")
+
+    outdir = os.path.join(workdir, "sync_bn_simclr")
+    argv = ["--dataset", "synthetic", "--arch", ARCH, "-b", "256", "-f", str(FIXATIONS),
+            "--canvas-size", str(CANVAS), "--epochs", "1", "-t", "--num-examples",
+            str(2 * 256 * SYNC_BN_RANKS), "--checkpoint-dir", ".", "-p", "1", "-v"]
+    log, ranks = run_ranks(torch, SYNC_BN_RANKS, "simclr", outdir, argv)
+    import re
+    line = re.search(r"^sync_bn calls a step \((\d+) steps\): fused ([\d.]+) \| chain ([\d.]+)$",
+                     log, re.M)
+    coll = re.search(r"^collectives a step \((\d+) steps\): .*sum ([\d.]+) calls", log, re.M)
+    if not line or not coll:
+        fail(f"the {SYNC_BN_RANKS}-rank SimCLR driver printed no sync_bn or collectives "
+             f"line:\n{log[-3000:]}")
+    fused_calls, chain_calls, sum_calls = float(line[2]), float(line[3]), float(coll[2])
+    per_step, both_ways = 53 * (1 + FIXATIONS), 53 * (1 + FIXATIONS) + 53 * FIXATIONS
+    # each rank's kernel counters over the whole run: the train steps' 53
+    # BatchNorms in 1+F forwards and F backwards, none in eval mode
+    steps = int(line[1])
+    want = bn_act_launches(steps * (1 + FIXATIONS), steps * FIXATIONS, 53)
+    launched = [{k: r["launches"][k] for k in BN_ACT_KERNELS} for r in ranks]
+    b1 = [r["launches"]["glimpse_sample"] for r in ranks]
+    times = _step_times(log)
+    peak = max(r["peak_gib"] for r in ranks)
+    print(f"{SYNC_BN_RANKS}-rank SimCLR driver ({ARCH}, b=256 a rank, F={FIXATIONS}, canvas "
+          f"{CANVAS}, bf16): {line[0]}; {coll[0]}; bn_act launches a rank "
+          f"{[list(d.values()) for d in launched]} over {steps} train steps (expected "
+          f"{list(want.values())}: {list(want.values())[0] // steps:,} and "
+          f"{list(want.values())[2] // steps:,} a step); glimpse_sample {b1} a rank (1+F = "
+          f"{1 + FIXATIONS} a train step, 2 an eval step); steps {[round(t) for t in times]} ms, "
+          f"peak memory {peak:.2f} GiB a rank [{device_name}]")
+    if fused_calls != per_step or chain_calls != 0 or not both_ways <= sum_calls < both_ways + 20:
+        fail(f"the {SYNC_BN_RANKS}-rank SimCLR step made {fused_calls} fused and {chain_calls} "
+             f"chain sync_bn calls and {sum_calls} sums, expected {per_step}, 0 and "
+             f"{both_ways} plus the metrics'")
+    if any(d != want for d in launched) or any(
+            (n - steps * (1 + FIXATIONS)) % 2 or n < steps * (1 + FIXATIONS) for n in b1):
+        fail(f"the {SYNC_BN_RANKS}-rank SimCLR run launched bn_act {launched} and glimpse_sample "
+             f"{b1} a rank, expected {want} and {steps * (1 + FIXATIONS)} plus 2 an eval step")
+    if bad:
+        fail(f"the fused sync_bn disagrees with the chain on {len(bad)} rank call(s): {bad}")
+    print(f"phase 3p (sync_bn through bn_act on one card and on {SYNC_BN_RANKS} ranks): "
+          f"{time.perf_counter() - t0:.1f} s [{device_name}]")
+    return rec
+
+
+def sync_bn_only() -> int:
+    """``--sync-bn``: phase 1's build of ``bn_act``, phase 2's ``bn_act``
+    checks and phase 3p alone."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("CUDA is not available")
+    from multimodal_active_ai_tpu_torch.ops import bn_act as ba
+    from multimodal_active_ai_tpu_torch.ops import cuda_build
+
+    built = cuda_build.build(["bn_act", "glimpse_sample"])
+    print(f"--- nvcc -Xptxas -v: bn_act ---\n{built['bn_act'].log.strip()}")
+    spilled = spills(built["bn_act"].log, "bn_act_")
+    if spilled:
+        fail("the bn_act kernels spill registers:\n" + "\n".join(spilled))
+    device_name = gpu_name_and_power()
+    print(f"gpu (name, power limit): {device_name}; {torch.cuda.device_count()} card(s)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check_bn_act(torch, ba)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_sync_bn_")
+    try:
+        run_sync_bn_path(torch, ba, workdir, device_name)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, PACKAGE)):
         fail(f"{PACKAGE}/ is not beside chip_smoke.py; run it from the repository root")
@@ -4347,6 +4751,7 @@ def main() -> int:
         run_caption_lm_path(torch, device_name)
         print(f"phase 3o (the generative caption step at the Kimi-VL-A3B cell's shapes): "
               f"{time.perf_counter() - t3o:.1f} s [{device_name}]")
+        run_sync_bn_path(torch, ba, workdir, device_name)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     rows["conv1x1_stats"]["launches"] = fused["conv1x1_stats"]
@@ -4458,4 +4863,6 @@ if __name__ == "__main__":
         sys.exit(rank_job(sys.argv[2], sys.argv[3], sys.argv[4:]))
     if sys.argv[1:2] == ["--caption-lm"]:
         sys.exit(caption_lm_only())
+    if sys.argv[1:2] == ["--sync-bn"]:
+        sys.exit(sync_bn_only())
     sys.exit(main())

@@ -71,6 +71,7 @@ from multimodal_active_ai_tpu_torch.data.prefetch import device_batches
 from multimodal_active_ai_tpu_torch.data.readers import list_coco_images, list_image_folder
 from multimodal_active_ai_tpu_torch.data.synthetic import SyntheticReader
 from multimodal_active_ai_tpu_torch.device import synchronize
+from multimodal_active_ai_tpu_torch.models import norm
 from multimodal_active_ai_tpu_torch.models.norm import refuse_multi_device
 from multimodal_active_ai_tpu_torch.models.resnet import Bottleneck
 from multimodal_active_ai_tpu_torch.models.simclr import SimCLRModule
@@ -146,14 +147,17 @@ def epoch_examples(reader) -> int:
 def print_loader_stats(cfg, reader, steps: int) -> None:
     """Under ``-v``, rank 0's lines for the ``steps`` train steps of the
     epoch just run: a file reader's, and with several ranks the
-    collectives' calls and MB a step (their counters then restart)."""
+    collectives' calls and MB a step and ``sync_bn``'s calls a step by
+    route (their counters then restart)."""
     if not cfg.verbose:
         return
     if isinstance(reader, HostLoader):
         print0(reader.stats_line())
     if parallel.world_size() > 1:
         print0(collectives.stats_line(steps))
+        print0(norm.sync_bn_line(steps))
         collectives.reset_counts()
+        norm.reset_sync_bn_counts()
 
 
 def resume_jax(cfg, payload: dict, model: SimCLRModule, opt) -> int:

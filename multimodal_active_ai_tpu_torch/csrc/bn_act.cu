@@ -17,6 +17,8 @@
 //             k = w * rstd, dw' = dw (0 where raw < 0: the clamp cut the
 //             variance's gradient), d identity = gy
 //
+// with the sums and n over this call's rows, or over every rank's rows for
+// SyncBatchNorm (NCCL sums the per-channel sums between the kernels),
 // in float32 whatever the storage type (bf16 or float32), outputs stored once
 // in that type.
 //
@@ -33,15 +35,20 @@
 //   rows on top of each other, so a warp reads whole 128-byte row segments,
 //   and each thread keeps the per-channel constants of its vector in
 //   registers for all of its rows.
-// * bn_act_stats / bn_act_grad_sums: per-channel float32 sums of the block's rows
-//   (warp shuffles, then one shared-memory step in a fixed order), one
+// * bn_act_sums / bn_act_grad_sums: per-channel float32 sums of the block's
+//   rows (warp shuffles, then one shared-memory step in a fixed order), one
 //   partial row per block; the last block of each channel tile (integer
 //   ticket, stat_finish.cuh) adds the tile's partial rows in a fixed order
-//   and finishes: mean, rstd, the clamp flag and the running update (stats),
-//   or dw and db (grad sums). No float atomics: the same input gives the
-//   same bits on every call.
-// * bn_act_apply / bn_act_grad_apply: one elementwise pass, each thread over the
-//   rows of its block's run, several 16-byte loads in flight.
+//   and writes [sum x, sum x^2] and the row count into one float32 buffer
+//   (the buffer NCCL sums over ranks), or dw and db (and their copy for
+//   NCCL). No float atomics: the same input gives the same bits on every
+//   call.
+// * bn_act_apply / bn_act_grad_apply: one elementwise pass, each thread over
+//   the rows of its block's run, several 16-byte loads in flight.
+//   bn_act_apply finishes mean, rstd and the clamp flag of its channels from
+//   the sums in its prologue (its first row of blocks also writes stats and
+//   the running update); bn_act_grad_apply divides dw and db by the count
+//   that the sums buffer holds.
 // Channels that do not fit 16-byte vectors (C not a multiple of the vector,
 // or a pointer not 16-byte aligned) take the scalar variant.
 
@@ -117,6 +124,36 @@ __device__ __forceinline__ Place place(long long n, int c, int cols, long long r
   return p;
 }
 
+// The statistics of models/norm.py:BatchNorm, op for op, from a channel's
+// [sum x, sum x^2] over `count` rows.
+struct ChannelStats {
+  float mean, var, rstd, clamped;
+};
+
+__device__ __forceinline__ ChannelStats channel_stats(float s, float q, float count, float eps) {
+  ChannelStats st;
+  st.mean = __fdiv_rn(s, count);
+  const float raw = __fsub_rn(__fdiv_rn(q, count), __fmul_rn(st.mean, st.mean));
+  st.var = fmaxf(raw, 0.0f);
+  st.rstd = rsqrtf(__fadd_rn(st.var, eps));
+  st.clamped = raw < 0.0f ? 1.0f : 0.0f;
+  return st;
+}
+
+// stats = (mean, rstd, clamp flag) of channel ch, and its running update
+// r <- momentum * r + keep_new * batch.
+__device__ __forceinline__ void write_channel(int ch, int c, const ChannelStats& st,
+                                              float momentum, float keep_new,
+                                              float* __restrict__ stats,
+                                              float* __restrict__ running_mean,
+                                              float* __restrict__ running_var) {
+  stats[ch] = st.mean;
+  stats[c + ch] = st.rstd;
+  stats[2 * c + ch] = st.clamped;
+  running_mean[ch] = __fadd_rn(__fmul_rn(running_mean[ch], momentum), __fmul_rn(st.mean, keep_new));
+  running_var[ch] = __fadd_rn(__fmul_rn(running_var[ch], momentum), __fmul_rn(st.var, keep_new));
+}
+
 // Adds the block's per-thread (s, q) over its row slots in a fixed order,
 // writes the block's partial row (W sums of s, W of q; W = cols * V), and
 // in the last block of the channel tile to finish adds the tile's partial
@@ -175,16 +212,13 @@ __device__ __forceinline__ bool reduce_tile(float (&s)[V], float (&q)[V], int co
 // ---------------------------------------------------------------- forward
 
 // Per-channel [sum x, sum x^2] of rows [r0, r1) of the block's channel tile;
-// the last block of the tile writes stats = (mean, rstd, clamp flag) for
-// the tile's channels and updates the running statistics (the tile-0 block
-// also counts the batch in num_batches_tracked).
+// the last block of the tile writes sums[ch] = sum x and sums[c + ch] = sum x^2
+// for the tile's channels, and the tile-0 one also the row count sums[2c] = n.
 template <typename T, int V>
 __global__ void __launch_bounds__(BN_THREADS, 2)
-bn_act_stats_kernel(const T* __restrict__ x, long long n, int c, int cols, long long rows_per_block,
-                float* __restrict__ partial, unsigned int* __restrict__ tickets,
-                float* __restrict__ stats, float* __restrict__ running_mean,
-                float* __restrict__ running_var, long long* __restrict__ batches,
-                float momentum, float keep_new, float eps) {
+bn_act_sums_kernel(const T* __restrict__ x, long long n, int c, int cols, long long rows_per_block,
+                   float* __restrict__ partial, unsigned int* __restrict__ tickets,
+                   float* __restrict__ sums) {
   __shared__ __align__(16) float red[4 * BN_THREADS];
   __shared__ float tot[2 * BN_TILE_C];
   __shared__ int last_flag;
@@ -218,37 +252,19 @@ bn_act_stats_kernel(const T* __restrict__ x, long long n, int c, int cols, long 
   if (!reduce_tile<V>(s, q, cols, red, tot, &last_flag, partial, tickets)) return;
   const int w = cols * V, c0 = blockIdx.y * w;
   for (int j = threadIdx.x; j < w && c0 + j < c; j += BN_THREADS) {
-    const int ch = c0 + j;
-    // the arithmetic of models/norm.py:BatchNorm, op for op
-    const float mean = __fdiv_rn(tot[j], (float)n);
-    const float raw = __fsub_rn(__fdiv_rn(tot[w + j], (float)n), __fmul_rn(mean, mean));
-    const float var = fmaxf(raw, 0.0f);
-    stats[ch] = mean;
-    stats[c + ch] = rsqrtf(__fadd_rn(var, eps));
-    stats[2 * c + ch] = raw < 0.0f ? 1.0f : 0.0f;
-    running_mean[ch] = __fadd_rn(__fmul_rn(running_mean[ch], momentum), __fmul_rn(mean, keep_new));
-    running_var[ch] = __fadd_rn(__fmul_rn(running_var[ch], momentum), __fmul_rn(var, keep_new));
+    sums[c0 + j] = tot[j];
+    sums[c + c0 + j] = tot[w + j];
   }
-  if (blockIdx.y == 0 && threadIdx.x == 0) *batches += 1;
+  if (blockIdx.y == 0 && threadIdx.x == 0) sums[2 * c] = (float)n;
 }
 
-// y = relu?((x - mean) * (rstd * w) + b [+ identity]) over the block's rows.
+// y = relu?((x - mean) * mul + b [+ identity]) over the block's rows, the
+// thread's per-channel constants given.
 template <typename T, int V>
-__global__ void __launch_bounds__(BN_THREADS, 1)
-bn_act_apply_kernel(const T* __restrict__ x, const T* __restrict__ identity, T* __restrict__ y,
-                const float* __restrict__ stats, const float* __restrict__ weight,
-                const float* __restrict__ bias, long long n, int c, int cols,
-                long long rows_per_block, int relu) {
-  const Place p = place(n, c, cols, rows_per_block);
-  if (p.vcol >= c / V) return;
-  const int ch0 = p.vcol * V;
-  float mean[V], mul[V], b[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    mean[i] = stats[ch0 + i];
-    mul[i] = __fmul_rn(stats[c + ch0 + i], weight[ch0 + i]);
-    b[i] = bias[ch0 + i];
-  }
+__device__ __forceinline__ void apply_rows(const T* __restrict__ x, const T* __restrict__ identity,
+                                           T* __restrict__ y, const float (&mean)[V],
+                                           const float (&mul)[V], const float (&b)[V],
+                                           const Place& p, int ch0, int c, int relu) {
   const long long step = (long long)p.slots * c;
   const long long first = (p.r0 + p.ty) * c + ch0;
   for (long long r = p.r0 + p.ty, o = first; r < p.r1;
@@ -276,17 +292,50 @@ bn_act_apply_kernel(const T* __restrict__ x, const T* __restrict__ identity, T* 
   }
 }
 
+// y = relu?((x - mean) * (rstd * w) + b [+ identity]) over the block's rows,
+// the statistics finished in the prologue from sums = [sum x (c), sum x^2
+// (c), count] (this call's rows, or every rank's). Every thread finishes its
+// own channels; the row of blocks with blockIdx.x == 0 also writes stats and
+// the running update, and block (0, 0) counts the batch.
+template <typename T, int V>
+__global__ void __launch_bounds__(BN_THREADS, 1)
+bn_act_apply_kernel(const T* __restrict__ x, const T* __restrict__ identity, T* __restrict__ y,
+                    const float* __restrict__ sums, const float* __restrict__ weight,
+                    const float* __restrict__ bias, float* __restrict__ stats,
+                    float* __restrict__ running_mean, float* __restrict__ running_var,
+                    long long* __restrict__ batches, long long n, int c, int cols,
+                    long long rows_per_block, int relu, float momentum, float keep_new,
+                    float eps) {
+  const Place p = place(n, c, cols, rows_per_block);
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) *batches += 1;
+  if (p.vcol >= c / V) return;
+  const int ch0 = p.vcol * V;
+  const bool writer = blockIdx.x == 0 && p.ty == 0;
+  float mean[V], mul[V], b[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int ch = ch0 + i;
+    const ChannelStats st = channel_stats(sums[ch], sums[c + ch], sums[2 * c], eps);
+    if (writer) write_channel(ch, c, st, momentum, keep_new, stats, running_mean, running_var);
+    mean[i] = st.mean;
+    mul[i] = __fmul_rn(st.rstd, weight[ch]);
+    b[i] = bias[ch];
+  }
+  apply_rows<T, V>(x, identity, y, mean, mul, b, p, ch0, c, relu);
+}
+
 // --------------------------------------------------------------- backward
 
 // Per-channel [sum gy, sum gy * (x - mean)] (gy = 0 where y <= 0 with ReLU,
-// else g); the last block of the tile writes db and dw = rstd * the second sum.
+// else g); the last block of the tile writes db and dw = rstd * the second sum,
+// and also copy[ch] = dw, copy[c + ch] = db when copy is given.
 template <typename T, int V>
 __global__ void __launch_bounds__(BN_THREADS, 1)
 bn_act_grad_sums_kernel(const T* __restrict__ g, const T* __restrict__ y, const T* __restrict__ x,
                     const float* __restrict__ stats, long long n, int c, int cols,
                     long long rows_per_block, float* __restrict__ partial,
                     unsigned int* __restrict__ tickets, float* __restrict__ dw,
-                    float* __restrict__ db) {
+                    float* __restrict__ db, float* __restrict__ copy) {
   __shared__ __align__(16) float red[4 * BN_THREADS];
   __shared__ float tot[2 * BN_TILE_C];
   __shared__ int last_flag;
@@ -329,24 +378,31 @@ bn_act_grad_sums_kernel(const T* __restrict__ g, const T* __restrict__ y, const 
   const int w = cols * V, c0 = blockIdx.y * w;
   for (int j = threadIdx.x; j < w && c0 + j < c; j += BN_THREADS) {
     const int ch = c0 + j;
+    const float dwc = __fmul_rn(tot[w + j], stats[c + ch]);
     db[ch] = tot[j];
-    dw[ch] = __fmul_rn(tot[w + j], stats[c + ch]);
+    dw[ch] = dwc;
+    if (copy != nullptr) {
+      copy[ch] = dwc;
+      copy[c + ch] = tot[j];
+    }
   }
 }
 
-// dx = k * gy - k * db / n - k * rstd * dw' / n * (x - mean) and, when
-// d_identity is given, d_identity = gy.
+// dx = k * gy - k * db / count - k * rstd * dw' / count * (x - mean) and, when
+// d_identity is given, d_identity = gy; *count is the rows that dw and db sum
+// over (the forward's sums buffer holds it: n, or every rank's rows).
 template <typename T, int V>
 __global__ void __launch_bounds__(BN_THREADS, 1)
 bn_act_grad_apply_kernel(const T* __restrict__ g, const T* __restrict__ y, const T* __restrict__ x,
                      const float* __restrict__ stats, const float* __restrict__ weight,
                      const float* __restrict__ dw, const float* __restrict__ db,
-                     T* __restrict__ dx, T* __restrict__ d_identity, long long n, int c, int cols,
+                     const float* __restrict__ count, T* __restrict__ dx,
+                     T* __restrict__ d_identity, long long n, int c, int cols,
                      long long rows_per_block) {
   const Place p = place(n, c, cols, rows_per_block);
   if (p.vcol >= c / V) return;
   const int ch0 = p.vcol * V;
-  const float fn = (float)n;
+  const float fn = *count;
   float mean[V], k[V], c0[V], c1[V];
 #pragma unroll
   for (int i = 0; i < V; ++i) {
@@ -433,49 +489,54 @@ int vec_len(int is_bf16, int vec) { return vec ? (is_bf16 ? 8 : 4) : 1; }
 // success) or cudaErrorInvalidValue for an inconsistent plan, and does not
 // synchronise.
 
-// stats from x; running_mean/var (c,) float32 and batches (int64) updated:
-// r <- momentum * r + keep_new * batch (keep_new = 1 - momentum, rounded once).
-extern "C" int bn_act_stats_launch(const void* x, long long n, int c, int is_bf16, int vec,
-                                   int cols, int row_blocks, int tiles_c,
-                                   long long rows_per_block, float* partial,
-                                   unsigned int* tickets, int n_tickets, float* stats,
-                                   float* running_mean, float* running_var, long long* batches,
-                                   float momentum, float keep_new, float eps, void* stream) {
+// sums (2c + 1) float32: [sum x (c), sum x^2 (c), n] of this call's rows.
+extern "C" int bn_act_sums_launch(const void* x, long long n, int c, int is_bf16, int vec,
+                                  int cols, int row_blocks, int tiles_c, long long rows_per_block,
+                                  float* partial, unsigned int* tickets, int n_tickets,
+                                  float* sums, void* stream) {
   if (!plan_ok(n, c, vec_len(is_bf16, vec), cols, row_blocks, tiles_c, rows_per_block) ||
       tiles_c > n_tickets)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned int)row_blocks, (unsigned int)tiles_c);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   BN_DISPATCH(is_bf16, vec,
-      bn_act_stats_kernel<T, V><<<grid, BN_THREADS, 0, s>>>(
-      static_cast<const T*>(x), n, c, cols, rows_per_block, partial, tickets, stats,
-      running_mean, running_var, batches, momentum, keep_new, eps););
+      bn_act_sums_kernel<T, V><<<grid, BN_THREADS, 0, s>>>(
+      static_cast<const T*>(x), n, c, cols, rows_per_block, partial, tickets, sums););
   return (int)cudaGetLastError();
 }
 
-// y = relu?(normalised x [+ identity]); identity may be null.
-extern "C" int bn_act_apply_launch(const void* x, const void* identity, void* y, const float* stats,
-                               const float* weight, const float* bias, long long n, int c,
-                               int is_bf16, int vec, int cols, int row_blocks, int tiles_c,
-                               long long rows_per_block, int relu, void* stream) {
+// y = relu?(normalised x [+ identity]) (identity may be null), the
+// statistics finished from sums (2c + 1) float32, [sum x, sum x^2, count]
+// (bn_act_sums's, or their sum over ranks): writes stats (3, c) and updates
+// running_mean/var (c,) float32 and batches (int64):
+// r <- momentum * r + keep_new * batch (keep_new = 1 - momentum, rounded once).
+extern "C" int bn_act_apply_launch(const void* x, const void* identity, void* y,
+                                   const float* sums, const float* weight, const float* bias,
+                                   float* stats, float* running_mean, float* running_var,
+                                   long long* batches, long long n, int c, int is_bf16, int vec,
+                                   int cols, int row_blocks, int tiles_c,
+                                   long long rows_per_block, int relu, float momentum,
+                                   float keep_new, float eps, void* stream) {
   if (!plan_ok(n, c, vec_len(is_bf16, vec), cols, row_blocks, tiles_c, rows_per_block))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned int)row_blocks, (unsigned int)tiles_c);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   BN_DISPATCH(is_bf16, vec,
       bn_act_apply_kernel<T, V><<<grid, BN_THREADS, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(identity), static_cast<T*>(y), stats,
-      weight, bias, n, c, cols, rows_per_block, relu););
+      static_cast<const T*>(x), static_cast<const T*>(identity), static_cast<T*>(y), sums,
+      weight, bias, stats, running_mean, running_var, batches, n, c, cols, rows_per_block, relu,
+      momentum, keep_new, eps););
   return (int)cudaGetLastError();
 }
 
-// dw, db (c,) float32 from g, y (null without ReLU) and x.
+// dw, db (c,) float32 from g, y (null without ReLU) and x; with copy
+// (2, c) float32 (null for none), [dw, db] written there too.
 extern "C" int bn_act_grad_sums_launch(const void* g, const void* y, const void* x,
                                    const float* stats, long long n, int c, int is_bf16, int vec,
                                    int cols, int row_blocks, int tiles_c,
                                    long long rows_per_block, float* partial,
                                    unsigned int* tickets, int n_tickets, float* dw, float* db,
-                                   void* stream) {
+                                   float* copy, void* stream) {
   if (!plan_ok(n, c, vec_len(is_bf16, vec), cols, row_blocks, tiles_c, rows_per_block) ||
       tiles_c > n_tickets)
     return (int)cudaErrorInvalidValue;
@@ -484,17 +545,19 @@ extern "C" int bn_act_grad_sums_launch(const void* g, const void* y, const void*
   BN_DISPATCH(is_bf16, vec,
       bn_act_grad_sums_kernel<T, V><<<grid, BN_THREADS, 0, s>>>(
       static_cast<const T*>(g), static_cast<const T*>(y), static_cast<const T*>(x), stats, n,
-      c, cols, rows_per_block, partial, tickets, dw, db););
+      c, cols, rows_per_block, partial, tickets, dw, db, copy););
   return (int)cudaGetLastError();
 }
 
 // dx and d_identity (either may be null) from g, y (null without ReLU), x,
-// stats, weight and the grad sums' dw, db.
+// stats, weight and the grad sums' dw, db over *count rows (a float on the
+// card: the row count of the forward's sums).
 extern "C" int bn_act_grad_apply_launch(const void* g, const void* y, const void* x,
                                     const float* stats, const float* weight, const float* dw,
-                                    const float* db, void* dx, void* d_identity, long long n,
-                                    int c, int is_bf16, int vec, int cols, int row_blocks,
-                                    int tiles_c, long long rows_per_block, void* stream) {
+                                    const float* db, const float* count, void* dx,
+                                    void* d_identity, long long n, int c, int is_bf16, int vec,
+                                    int cols, int row_blocks, int tiles_c,
+                                    long long rows_per_block, void* stream) {
   if (!plan_ok(n, c, vec_len(is_bf16, vec), cols, row_blocks, tiles_c, rows_per_block))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned int)row_blocks, (unsigned int)tiles_c);
@@ -502,7 +565,7 @@ extern "C" int bn_act_grad_apply_launch(const void* g, const void* y, const void
   BN_DISPATCH(is_bf16, vec,
       bn_act_grad_apply_kernel<T, V><<<grid, BN_THREADS, 0, s>>>(
       static_cast<const T*>(g), static_cast<const T*>(y), static_cast<const T*>(x), stats,
-      weight, dw, db, static_cast<T*>(dx), static_cast<T*>(d_identity), n, c, cols,
+      weight, dw, db, count, static_cast<T*>(dx), static_cast<T*>(d_identity), n, c, cols,
       rows_per_block););
   return (int)cudaGetLastError();
 }

@@ -25,11 +25,14 @@ launches the ``stat_sums`` kernel on one device only, as the JAX package
 does, and raises at world > 1.
 
 :func:`conv_norm_act` is ``relu?(norm(conv(x)) [+ identity])``, the
-ResNet's call of every conv and its norm: for a train-mode ``bn`` (or
-``sync_bn`` at world 1) on a CUDA tensor the norm, add and ReLU are the
-fused kernels of ``ops/bn_act.py``, two launches forward and two backward;
-for every other kind, mode and device the module, then the add and the
-ReLU as separate ops.
+ResNet's call of every conv and its norm: for a train-mode ``bn`` or
+``sync_bn`` on a CUDA tensor the norm, add and ReLU are the fused kernels
+of ``ops/bn_act.py``, two launches forward and two backward (for
+``sync_bn`` at world > 1 with one in-place all-reduce of the per-channel
+sums each way between them); for every other kind, mode and device the
+module, then the add and the ReLU as separate ops.
+:func:`sync_bn_counts` counts ``sync_bn``'s train-mode calls by route
+(``fused``, ``chain``) and :func:`sync_bn_line` prints them a step.
 
 ``frozen`` (:class:`FrozenBatchNorm`, the DETR backbone's) holds all four
 tensors as buffers, as the reference's ``FrozenBatchNorm2d`` does, and
@@ -94,9 +97,12 @@ class SyncBatchNorm(BatchNorm):
     group by a differentiable all-reduce, so each rank's backward carries
     every rank's cotangent of the global statistics. Same parameters,
     buffers, one-pass variance and running update as ``bn``; at world 1
-    it is ``bn`` bit for bit. Every rank runs each train-mode forward."""
+    it is ``bn`` bit for bit. Every rank runs each train-mode forward.
+    This module's ``forward`` is the float32 chain; :func:`conv_norm_act`
+    takes ``bn_act``'s kernels instead where :func:`fusable`."""
 
     def _batch_stats(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        _SYNC_BN_CALLS["chain"] += 1
         if world_size() == 1:
             return super()._batch_stats(x)
         xf = x.to(torch.float32)
@@ -188,11 +194,34 @@ class GroupNormAdapter(nn.Module):
         return y.to(x.dtype)
 
 
+_SYNC_BN_CALLS = {"fused": 0, "chain": 0}
+
+
+def sync_bn_counts() -> dict[str, int]:
+    """Train-mode :class:`SyncBatchNorm` forward calls by route since the
+    process started or the last :func:`reset_sync_bn_counts`: ``fused``
+    (the kernels of ``ops/bn_act.py``) and ``chain`` (the module's float32
+    chain). A backward follows a call on the route its forward took."""
+    return dict(_SYNC_BN_CALLS)
+
+
+def reset_sync_bn_counts() -> None:
+    for route in _SYNC_BN_CALLS:
+        _SYNC_BN_CALLS[route] = 0
+
+
+def sync_bn_line(steps: int) -> str:
+    """One line: :func:`sync_bn_counts` a step over ``steps`` steps."""
+    n = max(steps, 1)
+    return f"sync_bn calls a step ({steps} steps): " + " | ".join(
+        f"{route} {calls / n:.1f}" for route, calls in _SYNC_BN_CALLS.items())
+
+
 def fusable(norm: nn.Module, x: torch.Tensor, identity: torch.Tensor | None = None) -> bool:
     """Whether :func:`conv_norm_act` runs ``norm`` as the fused kernels: a
-    train-mode :class:`BatchNorm`, or :class:`SyncBatchNorm` at world 1, on
-    a CUDA bf16 or float32 ``x``, with an ``identity`` (if any) of its type."""
-    kind = type(norm) is BatchNorm or (type(norm) is SyncBatchNorm and world_size() == 1)
+    train-mode :class:`BatchNorm` or :class:`SyncBatchNorm` on a CUDA bf16
+    or float32 ``x``, with an ``identity`` (if any) of its type."""
+    kind = type(norm) is BatchNorm or type(norm) is SyncBatchNorm
     return (kind and norm.training and x.is_cuda and x.dtype in (torch.bfloat16, torch.float32)
             and (identity is None or identity.dtype == x.dtype))
 
@@ -201,13 +230,17 @@ def conv_norm_act(conv: nn.Module, norm: nn.Module, x: torch.Tensor,
                   identity: torch.Tensor | None = None, relu: bool = True) -> torch.Tensor:
     """``relu?(norm(conv(x)) [+ identity])``: ``conv``, then one
     :func:`~multimodal_active_ai_tpu_torch.ops.bn_act.batch_norm_act` where
-    :func:`fusable`, else ``norm``, the add and the ReLU one after the
-    other, each intermediate freed as soon as the next op has it."""
+    :func:`fusable` (over every rank's rows for a :class:`SyncBatchNorm` at
+    world > 1), else ``norm``, the add and the ReLU one after the other,
+    each intermediate freed as soon as the next op has it."""
     y = conv(x)
     if fusable(norm, y, identity):
+        sync = type(norm) is SyncBatchNorm
+        if sync:
+            _SYNC_BN_CALLS["fused"] += 1
         return bn_act.batch_norm_act(y, norm.weight, norm.bias, norm.running_mean,
                                      norm.running_var, norm.num_batches_tracked, norm.momentum,
-                                     norm.eps, identity, relu)
+                                     norm.eps, identity, relu, sync and world_size() > 1)
     out = norm(y)
     del y
     if identity is not None:

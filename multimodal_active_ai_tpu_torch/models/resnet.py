@@ -16,7 +16,8 @@ layout (``conv1``, ``bn1``, ``layer{s}.{i}.conv{k}``/``bn{k}``,
 
 Every conv and its norm run through :func:`~multimodal_active_ai_tpu_torch.
 models.norm.conv_norm_act` with the residual add and ReLU that follow: on
-the card a train-mode ``bn`` is then the fused kernels of ``ops/bn_act.py``.
+the card a train-mode ``bn`` or ``sync_bn`` is then the fused kernels of
+``ops/bn_act.py``.
 
 ``stat_fusion='pallas'|'gram'`` makes each Bottleneck produce its 1×1
 convs' BatchNorm statistics with the convs themselves

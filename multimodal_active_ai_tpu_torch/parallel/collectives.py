@@ -13,8 +13,10 @@ exists, at any world size; every rank must call it in the same order.
 * :func:`all_reduce_sum_with_grad` is the differentiable sum (global
   BatchNorm statistics): its backward is the sum of every rank's cotangent.
 * :func:`all_reduce_mean` / :func:`all_reduce_sum` reduce values for
-  metrics; :func:`average_gradients` is the gradient all-reduce, one
-  coalesced buffer a call.
+  metrics; :func:`all_reduce_sum_` sums a buffer in place (the fused
+  ``sync_bn``'s per-channel sums, ``ops/bn_act.py``);
+  :func:`average_gradients` is the gradient all-reduce, one coalesced
+  buffer a call.
 
 Every collective on the wire goes through one of three functions, each a
 span of its own under a profiler (``utils/profiling.span``):
@@ -50,9 +52,9 @@ def _gather(x: torch.Tensor) -> torch.Tensor:
         return torch.cat(blocks, 0)
 
 
-def _summed(x: torch.Tensor) -> torch.Tensor:
+def _summed(x: torch.Tensor, inplace: bool = False) -> torch.Tensor:
     with span("collectives.sum"):
-        out = x.clone()
+        out = x if inplace else x.clone()
         dist.all_reduce(out)
         _count(_summed, out)
         return out
@@ -107,6 +109,13 @@ def all_reduce_sum_with_grad(x: torch.Tensor) -> torch.Tensor:
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     """The sum of ``x`` over ranks, without gradient."""
     return _summed(x.detach()) if dist.is_initialized() else x.detach()
+
+
+def all_reduce_sum_(x: torch.Tensor) -> torch.Tensor:
+    """``x`` replaced by its sum over ranks, in place and without gradient
+    (a contiguous buffer that autograd does not track); ``x`` as it is
+    without a process group."""
+    return _summed(x, inplace=True) if dist.is_initialized() else x
 
 
 def all_reduce_mean(x: torch.Tensor) -> torch.Tensor:

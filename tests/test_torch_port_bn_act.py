@@ -18,7 +18,7 @@ from multimodal_active_ai_tpu_torch.models.norm import BatchNorm, SyncBatchNorm,
 from multimodal_active_ai_tpu_torch.models.resnet import build_encoder
 from multimodal_active_ai_tpu_torch.ops import bn_act as ba
 
-WRAPPERS = (ba.bn_act_stats, ba.bn_act_apply, ba.bn_act_grad_sums, ba.bn_act_grad_apply)
+WRAPPERS = (ba.bn_act_sums, ba.bn_act_apply, ba.bn_act_grad_sums, ba.bn_act_grad_apply)
 # (identity, relu) as the ResNet calls them: a norm + ReLU, a shortcut's
 # norm, a block's end; and a residual without ReLU
 VARIANTS = [(False, True), (False, False), (True, True), (True, False)]
@@ -56,14 +56,15 @@ def _chain(bn, x, identity, relu):
 
 def _plain_forward(bn, x, identity, relu):
     """The fused forward's plain versions on ``bn``'s parameters and
-    buffers: the statistics, the running update, the apply pass. Returns
-    the output and the ``(3, C)`` statistics."""
-    stats = ba.bn_act_stats_plain(x, bn.eps)
-    mean, raw = ba.mean_raw_var(x)
-    ba.update_running(bn.running_mean, bn.running_var, bn.num_batches_tracked, mean,
-                      raw.clamp_min(0.0), bn.momentum)
-    return ba.bn_act_apply_plain(x, stats, bn.weight.detach(), bn.bias.detach(), identity,
-                                 relu), stats
+    buffers: the sums, then the statistics, the running update and the
+    apply pass. Returns the output and the ``(3, C)`` statistics."""
+    return ba.bn_act_apply_plain(x, ba.bn_act_sums_plain(x), bn.weight.detach(),
+                                 bn.bias.detach(), bn.running_mean, bn.running_var,
+                                 bn.num_batches_tracked, bn.momentum, bn.eps, identity, relu)
+
+
+def _stats(x, eps=1e-5):
+    return ba.stats_from_sums_plain(ba.bn_act_sums_plain(x), eps)[0]
 
 
 def _both(dtype, with_identity, relu, x=None):
@@ -138,7 +139,7 @@ def test_bfloat16_matches_the_chain(with_identity, relu):
     dx = (fused["dx"].float() - chain["dx"].float()).abs()[keep]
     assert float(dx.max()) < 2e-2 * float(chain["dx"].float().abs().max())
     x, _, _, _, g = _inputs(torch.bfloat16)
-    stats = ba.bn_act_stats_plain(x, 1e-5)
+    stats = _stats(x)
     xhat = (x.float() - stats[0].view(1, -1, 1, 1)) * stats[1].view(1, -1, 1, 1)
     gf = g.float() * flip
     for k, slack in (("db", gf.abs().sum((0, 2, 3))), ("dw", (gf * xhat).abs().sum((0, 2, 3)))):
@@ -159,7 +160,7 @@ def test_a_clamped_variance_cuts_its_gradient_term():
     gen = torch.Generator().manual_seed(3)
     x = torch.randn(6, 8, 5, 7, generator=gen)
     x[:, 4:] = 100 + 1e-3 * torch.randn(6, 4, 5, 7, generator=gen)
-    stats = ba.bn_act_stats_plain(x, 1e-5)
+    stats = _stats(x)
     clamped = stats[2] != 0
     assert clamped[4:].any() and not clamped[:4].any()
     assert torch.equal(stats[1][clamped], torch.full((int(clamped.sum()),), 1e-5) ** -0.5)
@@ -186,15 +187,16 @@ def test_other_ranks(shape):
 
 
 def test_plain_grad_alone_matches_autograd_of_the_plain_forward():
-    """``bn_act_grad_plain`` against autograd through ``bn_act_stats_plain``
-    and ``bn_act_apply_plain``: the fused formula is that gradient."""
+    """``bn_act_grad_plain`` against autograd through ``bn_act_sums_plain``,
+    ``stats_from_sums_plain`` and ``normalize_act_plain``: the fused formula
+    is that gradient."""
     x, identity, weight, bias, g = _inputs(torch.float32)
     xr = x.clone().requires_grad_()
     w = weight.clone().requires_grad_()
     b = bias.clone().requires_grad_()
-    y = ba.bn_act_apply_plain(xr, ba.bn_act_stats_plain(xr, 1e-5), w, b, identity, True)
+    y = ba.normalize_act_plain(xr, _stats(xr), w, b, identity, True)
     y.backward(g)
-    stats = ba.bn_act_stats_plain(x, 1e-5)
+    stats = _stats(x)
     dx, dw, db, gy = ba.bn_act_grad_plain(g, x, y.detach(), stats, weight)
     assert _rel(dx, xr.grad) < 1e-5 and _rel(dw, w.grad) < 1e-5 and _rel(db, b.grad) < 1e-5
     assert torch.equal(gy, torch.where(y.detach() <= 0, 0.0, g))
@@ -267,10 +269,10 @@ def test_conv_norm_act_chain_is_the_modules_forward():
 
 
 def test_fusable_only_for_train_mode_batchnorm_on_the_card(monkeypatch):
-    """The fused Function is taken for a train-mode ``BatchNorm`` (or
-    ``SyncBatchNorm`` at world 1) on a CUDA tensor of bf16 or float32, with
-    a residual of its type, alone: seen here by standing in a CUDA flag on
-    CPU tensors."""
+    """The fused Function is taken for a train-mode ``BatchNorm`` or
+    ``SyncBatchNorm`` (at any world size: at world > 1 over every rank's
+    rows) on a CUDA tensor of bf16 or float32, with a residual of its type,
+    alone: seen here by standing in a CUDA flag on CPU tensors."""
     x = torch.randn(2, 4, 3, 3)
     assert not norm_mod.fusable(BatchNorm(4), x)           # the CPU
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
@@ -282,4 +284,62 @@ def test_fusable_only_for_train_mode_batchnorm_on_the_card(monkeypatch):
     assert not norm_mod.fusable(BatchNorm(4), x.double())
     assert not norm_mod.fusable(BatchNorm(4), x, x.bfloat16())
     monkeypatch.setattr(norm_mod, "world_size", lambda: 2)
-    assert not norm_mod.fusable(SyncBatchNorm(4), x) and norm_mod.fusable(BatchNorm(4), x)
+    assert norm_mod.fusable(SyncBatchNorm(4), x) and norm_mod.fusable(BatchNorm(4), x)
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_conv_norm_act_routes_sync_bn_by_world_size(monkeypatch, world):
+    """Where ``fusable``, ``conv_norm_act`` hands a ``SyncBatchNorm`` to the
+    Function with ``sync`` (the statistics of every rank's rows) at world >
+    1 and without it at world 1, a ``BatchNorm`` without it at any world,
+    and counts each train-mode ``SyncBatchNorm`` call by route: ``fused``
+    here, ``chain`` through the module on the CPU; eval mode is not
+    counted. Seen by standing in a CUDA flag and the Function on CPU
+    tensors."""
+    calls = []
+    monkeypatch.setattr(norm_mod, "world_size", lambda: world)
+    monkeypatch.setattr(norm_mod.bn_act, "batch_norm_act", lambda x, *a: calls.append(a[9]) or x)
+    conv = torch.nn.Identity()
+    x = torch.randn(2, 4, 3, 3)
+    norm_mod.reset_sync_bn_counts()
+    with monkeypatch.context() as m:
+        m.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+        conv_norm_act(conv, SyncBatchNorm(4), x)
+        conv_norm_act(conv, BatchNorm(4), x)
+    assert calls == [world > 1, False]
+    assert norm_mod.sync_bn_counts() == {"fused": 1, "chain": 0}
+    monkeypatch.setattr(norm_mod, "world_size", lambda: 1)   # no process group on the CPU
+    conv_norm_act(conv, SyncBatchNorm(4), x)
+    conv_norm_act(conv, SyncBatchNorm(4).eval(), x)
+    assert norm_mod.sync_bn_counts() == {"fused": 1, "chain": 1}
+    assert norm_mod.sync_bn_line(2) == "sync_bn calls a step (2 steps): fused 0.5 | chain 0.5"
+    norm_mod.reset_sync_bn_counts()
+    assert norm_mod.sync_bn_counts() == {"fused": 0, "chain": 0}
+
+
+@pytest.mark.parametrize("split", [1, 17, 29])
+def test_sums_of_parts_add_to_the_whole(split):
+    """The ``(2C + 1,)`` sums buffer ends in its rows, so the buffers of
+    two parts of a batch (two ranks' rows, unequal when ``split`` is not
+    half), added as the all-reduce adds them, give the whole batch's
+    statistics, running update and output: the count the apply pass and
+    the gradient pass divide by is the parts' total."""
+    x, _, weight, bias, g = _inputs(torch.float32, (6, 8, 2, 3))
+    rows = ba._rows(x)
+    parts = ba.bn_act_sums_plain(rows[:split]) + ba.bn_act_sums_plain(rows[split:])
+    assert float(parts[-1]) == rows.shape[0]
+    whole = _module(8, weight, bias)
+    y, stats = ba.bn_act_apply_plain(rows, ba.bn_act_sums_plain(rows), weight, bias,
+                                     whole.running_mean, whole.running_var,
+                                     whole.num_batches_tracked, 0.9, 1e-5)
+    bn = _module(8, weight, bias)
+    y_p, stats_p = ba.bn_act_apply_plain(rows, parts, weight, bias, bn.running_mean,
+                                         bn.running_var, bn.num_batches_tracked, 0.9, 1e-5)
+    assert _rel(stats_p, stats) < 1e-6 and _rel(y_p, y) < 1e-5
+    for k, v in whole.named_buffers():
+        assert _rel(getattr(bn, k), v) < 1e-6, k
+    g2d = ba._rows(g)
+    dw, db = ba.bn_act_grad_sums_plain(g2d, rows, y, stats)
+    dx, _ = ba.bn_act_grad_apply_plain(g2d, rows, y, stats, weight, dw, db)
+    dx_p, _ = ba.bn_act_grad_apply_plain(g2d, rows, y, stats, weight, dw, db, parts[-1:])
+    assert torch.equal(dx_p, dx)

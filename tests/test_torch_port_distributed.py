@@ -125,6 +125,113 @@ def test_sync_batchnorm_matches_flax_over_the_global_batch(tmp_path):
                for k in ("weight.grad", "bias.grad", "running_mean", "running_var"))
 
 
+@pytest.fixture(scope="module")
+def syncbn_fused(tmp_path_factory):
+    """``case_syncbn_fused`` over 2 × 4 rows of 5 channels (un-centred;
+    ``x_clamp``'s last two channels two values near 96, multiples of 2^-7
+    whose float32 squares are multiples of 2^-4, so that every partial sum
+    of ``x`` and ``x²`` is exact in any order and the one-pass variance
+    falls below 0 by the rounding of the two divisions by 72 alone), and
+    flax ``BatchNorm`` (momentum
+    0.9, ε 1e-5, train mode) over all 8 rows with the residual add and the
+    ReLU, under the loss ``Σ y · G``, for each variant of ``x``."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(2.0, 3.0, (GB, 5, 3, 3)).astype(np.float32)
+    x_clamp = x.copy()
+    for ch, (low, high, k) in zip((3, 4), ((95.984375, 96.0, 48), (95.984375, 95.9921875, 24))):
+        values = np.array([low] * k + [high] * (GB * 9 - k), dtype=np.float32)
+        x_clamp[:, ch] = rng.permutation(values).reshape(GB, 3, 3)
+    g = rng.normal(size=x.shape).astype(np.float32)
+    identity = rng.normal(size=x.shape).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, 5).astype(np.float32)
+    bias = rng.normal(0, 0.1, 5).astype(np.float32)
+    mean0 = rng.uniform(-1, 1, 5).astype(np.float32)
+    var0 = rng.uniform(0.5, 2, 5).astype(np.float32)
+    ranks = run_ranks("syncbn_fused", tmp_path_factory.mktemp("syncbn_fused"),
+                      {"x": _t(x), "x_clamp": _t(x_clamp), "g": _t(g), "identity": _t(identity),
+                       "weight": _t(scale), "bias": _t(bias), "running_mean": _t(mean0),
+                       "running_var": _t(var0)})
+
+    bn = fnn.BatchNorm(use_running_average=False, momentum=0.9, epsilon=1e-5)
+    nhwc = lambda a: jnp.asarray(a.transpose(0, 2, 3, 1))  # noqa: E731
+    nchw = lambda a: np.asarray(a).transpose(0, 3, 1, 2)  # noqa: E731
+    variables = {"params": {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)},
+                 "batch_stats": {"mean": jnp.asarray(mean0), "var": jnp.asarray(var0)}}
+    flax = {}
+    for name, with_id, relu in (("id.relu", True, True), ("id", True, False),
+                                ("relu", False, True), ("plain", False, False)):
+        def loss(params, xs, ids):
+            y, mutated = bn.apply({**variables, "params": params}, xs, mutable=["batch_stats"])
+            y = y + ids if with_id else y
+            y = jax.nn.relu(y) if relu else y
+            return jnp.sum(y * nhwc(g)), (y, mutated["batch_stats"])
+
+        (_, (y, stats)), (gp, gx, gid) = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+            variables["params"], nhwc(x), nhwc(identity))
+        flax[name] = {"y": nchw(y), "x.grad": nchw(gx), "identity.grad": nchw(gid),
+                      "weight.grad": np.asarray(gp["scale"]), "bias.grad": np.asarray(gp["bias"]),
+                      "running_mean": np.asarray(stats["mean"]),
+                      "running_var": np.asarray(stats["var"])}
+    return ranks, flax
+
+
+@pytest.mark.parametrize("variant", ["id.relu", "id", "relu", "plain", "clamp", "uneven"])
+def test_fused_sync_batchnorm_matches_the_chain_and_flax(syncbn_fused, variant):
+    """The fused ``sync_bn`` Function's arithmetic (its kernels' plain
+    versions) on 2 ranks against ``SyncBatchNorm``'s chain on the same
+    ranks: output, ``dx``, the residual's gradient, this rank's weight and
+    bias gradients and the running buffers (one more batch tracked), to
+    1e-5 normwise (float32 sums in another order); and, summed over ranks
+    where a gradient is the batch's, against flax ``BatchNorm`` over the
+    global batch to the same 1e-5. ``clamp``: both sides clamp the same
+    channels' variance (some, not all), and ``dx`` is held to 1e-3, the
+    bound of ``tests/test_torch_port_bn_act.py``'s clamped case for the
+    same reason (``rsqrt(ε)`` magnifies the rounding of ``x − mean``), which
+    a gradient term left in the clamped channels would exceed by its whole
+    size; flax takes its own order there, so it is not compared. ``uneven``:
+    rank 0 brings one row fewer, and the Function takes the row count from
+    the summed buffer as the chain does (no flax batch to compare)."""
+    ranks, flax = syncbn_fused
+    keys = ["y", "x.grad", "weight.grad", "bias.grad", "running_mean", "running_var"]
+    keys += ["identity.grad"] if variant.startswith("id") else []
+    for r, out in enumerate(ranks):
+        assert int(out[f"{variant}.fused.num_batches_tracked"]) == 1
+        assert f"{variant}.fused.identity.grad" in out or not variant.startswith("id")
+        for k in keys:
+            tol = 1e-3 if (variant, k) == ("clamp", "x.grad") else 1e-5
+            assert _normwise(out[f"{variant}.fused.{k}"], out[f"{variant}.chain.{k}"]) <= tol, k
+        if variant == "clamp":
+            flag = out["clamp.fused.flag"]
+            assert torch.equal(flag, out["clamp.chain.flag"])
+            assert not flag[:3].any() and flag[3:].any()
+            continue
+        if variant == "uneven":
+            assert out["uneven.fused.y"].shape[0] == (B - 1 if r == 0 else B)
+            continue
+        rows = slice(r * B, (r + 1) * B)
+        want = flax[variant]
+        for k in keys:
+            got = out[f"{variant}.fused.{k}"]
+            if k in ("weight.grad", "bias.grad"):
+                got = ranks[0][f"{variant}.fused.{k}"] + ranks[1][f"{variant}.fused.{k}"]
+            ref = want[k][rows] if k in ("y", "x.grad", "identity.grad") else want[k]
+            assert _normwise(got, ref) <= 1e-5, k
+    for k in ("running_mean", "running_var"):
+        assert torch.equal(ranks[0][f"{variant}.fused.{k}"], ranks[1][f"{variant}.fused.{k}"])
+
+
+def test_fused_sync_batchnorm_sums_on_every_rank_whatever_it_needs(syncbn_fused):
+    """One forward and backward of the fused ``sync_bn`` Function when only
+    rank 0's input needs a gradient (the weight and bias on both): both
+    ranks make the same two ``collectives.sum`` calls, one each way, so
+    neither waits on the other, and each holds the chain's weight
+    gradient of its rows (the ``relu`` variant's)."""
+    ranks, _ = syncbn_fused
+    assert [int(out["sum_calls"]) for out in ranks] == [2, 2]
+    for out in ranks:
+        assert _normwise(out["no_input_grad.weight.grad"], out["relu.chain.weight.grad"]) <= 1e-5
+
+
 @pytest.mark.parametrize("torch_gather_semantics", [True, False])
 def test_ntxent_with_rank_offsets_matches_jax_on_the_global_batch(tmp_path,
                                                                   torch_gather_semantics):

@@ -36,7 +36,7 @@ from multimodal_active_ai_tpu_torch.models.simclr import SimCLRModule
 from multimodal_active_ai_tpu_torch.models.text import TextEncoder
 from multimodal_active_ai_tpu_torch.objectives.ntxent import contrastive_loss
 from multimodal_active_ai_tpu_torch.objectives.set_criterion import SetCriterion
-from multimodal_active_ai_tpu_torch.ops import retina
+from multimodal_active_ai_tpu_torch.ops import bn_act, retina
 from multimodal_active_ai_tpu_torch.parallel import collectives, local_rows
 from multimodal_active_ai_tpu_torch.rl.replay_memory import Transition
 from multimodal_active_ai_tpu_torch.train import (caption_probe, detr_train, eval_probe,
@@ -108,6 +108,108 @@ def case_syncbn(inp: dict) -> dict:
             "weight.grad": parallel.all_reduce_sum(bn.weight.grad),
             "bias.grad": parallel.all_reduce_sum(bn.bias.grad),
             "running_mean": bn.running_mean, "running_var": bn.running_var}
+
+
+# the fused BatchNorm's kernel wrappers and the plain versions that stand in
+# for them on the CPU (the same arguments; the gradient pass's outputs as
+# wanted, its divisor the count in the forward's sums)
+def _grad_apply_plain(g, x, y, stats, weight, dw, db, sums, want_dx=True, want_identity=False):
+    count = sums[2 * x.shape[1]:]
+    dx, gy = bn_act.bn_act_grad_apply_plain(g, x, y, stats, weight, dw, db, count)
+    return dx if want_dx else None, gy if want_identity else None
+
+
+SYNC_BN_PLAIN = {"bn_act_sums": bn_act.bn_act_sums_plain,
+                 "bn_act_apply": bn_act.bn_act_apply_plain,
+                 "bn_act_grad_sums": bn_act.bn_act_grad_sums_plain,
+                 "bn_act_grad_apply": _grad_apply_plain}
+
+
+def _fused_sync_bn(x, bn, identity=None, relu=True):
+    """``bn_act``'s Function over every rank's rows, on the CPU: the
+    Function itself, which ``batch_norm_act`` hands CUDA tensors alone."""
+    return bn_act._BatchNormAct.apply(x, bn.weight, bn.bias, identity, bn.running_mean,
+                                      bn.running_var, bn.num_batches_tracked, bn.momentum, bn.eps,
+                                      relu, True)
+
+
+def _syncbn_module(inp: dict) -> SyncBatchNorm:
+    bn = SyncBatchNorm(inp["x"].shape[1]).train()
+    with torch.no_grad():
+        bn.weight.copy_(inp["weight"])
+        bn.bias.copy_(inp["bias"])
+        bn.running_mean.copy_(inp["running_mean"])
+        bn.running_var.copy_(inp["running_var"])
+    return bn
+
+
+def _syncbn_side(inp: dict, x: torch.Tensor, identity: torch.Tensor | None, relu: bool,
+                 fused: bool) -> dict:
+    """``relu?(sync_bn(x) [+ identity])`` of this rank's rows under the loss
+    ``Σ y · G``, by ``SyncBatchNorm``'s chain or by ``bn_act``'s sync
+    Function: output, gradients and buffers."""
+    bn = _syncbn_module(inp)
+    x = x.clone().requires_grad_(True)
+    identity = None if identity is None else identity.clone().requires_grad_(True)
+    if fused:
+        y = _fused_sync_bn(x, bn, identity, relu)
+    else:
+        y = bn(x)
+        y = y if identity is None else y + identity
+        y = torch.relu(y) if relu else y
+    (y * local_rows(inp["g"])[:x.shape[0]]).sum().backward()
+    out = {"y": y.detach(), "x.grad": x.grad, "weight.grad": bn.weight.grad,
+           "bias.grad": bn.bias.grad, **{k: v.clone() for k, v in bn.named_buffers()}}
+    if identity is not None:
+        out["identity.grad"] = identity.grad
+    return out
+
+
+def case_syncbn_fused(inp: dict) -> dict:
+    """The fused ``sync_bn`` Function of ``ops/bn_act.py`` with the plain
+    versions standing in for its kernels, beside ``SyncBatchNorm``'s chain,
+    on this rank's rows: with and without the residual and the ReLU
+    (``x``); on ``x_clamp``, whose last channels' one-pass variance falls
+    below 0 (both sides' clamp flags of the global statistics returned);
+    and with rank 0 holding one row fewer than the others (``uneven``).
+    Then the ``collectives.sum`` calls of one forward and backward (ReLU, no
+    residual) when only rank 0's input needs a gradient."""
+    saved = {k: getattr(bn_act, k) for k in SYNC_BN_PLAIN}
+    out = {}
+    try:
+        for k, v in SYNC_BN_PLAIN.items():
+            setattr(bn_act, k, v)
+        identity = local_rows(inp["identity"])
+        for name, xs, with_id, relu in (("id.relu", "x", True, True), ("id", "x", True, False),
+                                        ("relu", "x", False, True), ("plain", "x", False, False),
+                                        ("clamp", "x_clamp", False, True),
+                                        ("uneven", "x", False, True)):
+            x = local_rows(inp[xs])
+            if name == "uneven" and parallel.rank() == 0:
+                x = x[:-1]
+            for side in ("chain", "fused"):
+                got = _syncbn_side(inp, x, identity if with_id else None, relu, side == "fused")
+                out.update({f"{name}.{side}.{k}": v for k, v in got.items()})
+            if name == "clamp":
+                xf = x.to(torch.float32)
+                dims = [0, 2, 3]
+                s, sq, n = SyncBatchNorm.global_sums(xf.sum(dims), (xf * xf).sum(dims),
+                                                     x.numel() // x.shape[1])
+                mean = s / n
+                out["clamp.chain.flag"] = (sq / n - mean * mean < 0).to(torch.float32)
+                sums = parallel.all_reduce_sum(bn_act.bn_act_sums_plain(bn_act._rows(x)))
+                out["clamp.fused.flag"] = bn_act.stats_from_sums_plain(sums, 1e-5)[0][2]
+        bn = _syncbn_module(inp)
+        x = local_rows(inp["x"]).clone().requires_grad_(parallel.rank() == 0)
+        before = collectives.counts()["collectives.sum"][0]
+        y = _fused_sync_bn(x, bn)
+        (y * local_rows(inp["g"])).sum().backward()
+        out["sum_calls"] = torch.tensor(collectives.counts()["collectives.sum"][0] - before)
+        out["no_input_grad.weight.grad"] = bn.weight.grad
+    finally:
+        for k, v in saved.items():
+            setattr(bn_act, k, v)
+    return out
 
 
 def case_ntxent(inp: dict) -> dict:
@@ -310,7 +412,8 @@ def case_spans(inp: dict) -> dict:
             "params": sum(p.numel() for p in model.parameters())}
 
 
-CASES = {"concat": case_concat, "syncbn": case_syncbn, "ntxent": case_ntxent,
+CASES = {"concat": case_concat, "syncbn": case_syncbn, "syncbn_fused": case_syncbn_fused,
+         "ntxent": case_ntxent,
          "simclr": case_simclr, "probe": case_probe, "detr": case_detr,
          "caption": case_caption, "rls": case_rls, "spans": case_spans}
 
